@@ -43,27 +43,20 @@ def cmd_import_gim(args):
             f"h={r.h:.2f} r={r.r:.1f} ({r.cbm_path})"
         )
     if args.table:
-        import pandas as pd
+        from pointcloudhookup_tpu.models.pipeline import write_table
 
+        columns = (
+            "系统层级", "系统类型", "经度", "纬度", "高度", "北方向偏角",
+            "杆塔编号", "CBM路径",
+        )
         rows = [
-            {
-                "系统层级": r.name,
-                "系统类型": r.type,
-                "经度": r.lng,
-                "纬度": r.lat,
-                "高度": r.h,
-                "北方向偏角": r.r,
-                "杆塔编号": (r.properties or {}).get("杆塔编号", ""),
-                "CBM路径": r.cbm_path,
-            }
+            (
+                r.name, r.type, r.lng, r.lat, r.h, r.r,
+                (r.properties or {}).get("杆塔编号", ""), r.cbm_path,
+            )
             for r in records
         ]
-        df = pd.DataFrame(rows)
-        try:
-            df.to_excel(args.table, index=False)
-        except (ImportError, ModuleNotFoundError, ValueError):
-            df.to_csv(args.table.rsplit(".", 1)[0] + ".csv", index=False)
-        print(f"table -> {args.table}")
+        print(f"table -> {write_table(args.table, columns, rows)}")
 
 
 def cmd_compress(args):
@@ -380,20 +373,15 @@ def cmd_stream_extract(args):
     from pointcloudhookup_tpu.models.towers import towers_from_stats
     from pointcloudhookup_tpu.utils.validate import quality_dedup
 
+    from pointcloudhookup_tpu.core.governor import estimate_points
+
+    sizes = [estimate_points(p) or 0 for p in args.las]
     b = budget(
         max_memory_percent=args.max_memory_percent,
         hard_cap=args.capacity,
+        n_points=max(sizes) or None,
     )
     capacity = args.capacity or b.capacity
-    # device kernels (OBB accumulation, converge) block in 1024-row
-    # granules; round any explicit capacity up so --fast never trips a
-    # block-size check deep inside jit tracing.  Big fast tiles align
-    # to the compaction kernel's 32k block so the ground pre-cut can
-    # engage (frontend precut_div).
-    if args.fast and capacity >= 131072:
-        capacity = -(-capacity // 32768) * 32768
-    else:
-        capacity = -(-capacity // 1024) * 1024
     print(f"governor: {b.reason}" + (" (explicit --capacity)" if args.capacity else ""))
     params = ExtractParams(
         cluster=ClusterParams(

@@ -90,11 +90,6 @@ class TileStreamer:
                 max_memory_percent=max_memory_percent,
                 n_points=biggest or None,
             )
-        # align big tiles to the compaction kernel's 32k block so the
-        # fast step's ground pre-cut (frontend precut_div) can engage;
-        # the padding rows ride as masked points
-        if capacity >= 131072:
-            capacity = -(-capacity // 32768) * 32768
         self.capacity = capacity
 
     def _load(self, source) -> np.ndarray:
@@ -208,7 +203,9 @@ def stream_extract(
     voxel); pass wire="f32" for exact coordinates.  fast=True runs the
     fused geometric front-end + sort-free OBB per tile (the bench fast
     mode: positions quantize to voxel centers, bounded by
-    tests/test_fast_vs_parity.py) instead of the modular parity step."""
+    tests/test_fast_vs_parity.py) instead of the modular parity step.
+    A tile whose cell table spills re-runs at a higher cell-density
+    floor, as pipeline.extract_from_points does."""
     from pointcloudhookup_tpu.config import ExtractParams
     from pointcloudhookup_tpu.models.towers import extract_step
 
@@ -218,29 +215,30 @@ def stream_extract(
             fused_extract_step,
         )
 
-        def step(xyz, mask, meta):
-            # honor the configured cell-density floor: the fused default
-            # of 2 is a bench denoising choice, but at eps < 5.54 the
-            # cell graph shrinks its cells (diagonal-under-eps rule) and
-            # a sparse mid-tower cell layer must not split a structure.
-            # full sort + ground pre-cut: lax.sort payloads beyond the
-            # first cost as much as keys, so the single-key hier/cell
-            # modes measure SLOWER end-to-end than the 2-key sort; the
-            # pre-cut instead shrinks the sorted row count itself
-            # (auto-disabled on small/unaligned tiles; capacity overflow
-            # rides stats["cells_overflow"]).  precut_div=0 reverts to
-            # the full-row fast path: the pre-cut base comes from a RAW
-            # strided z sample, which skews vs the voxel-dedup base by
-            # up to (density skew x terrain relief) on uneven-density
-            # tiles (docs/PARITY.md).
+        def step(xyz, mask, floor):
+            # full sort + ground pre-cut: the pre-cut shrinks the sorted
+            # row count itself (auto-disabled on small tiles; capacity
+            # overflow rides stats["cells_overflow"]).  precut_div=0
+            # reverts to the full-row fast path: the pre-cut base comes
+            # from a RAW strided z sample, which skews vs the voxel-dedup
+            # base by up to (density skew x terrain relief) on
+            # uneven-density tiles (docs/PARITY.md).
             return fused_extract_step(
                 xyz, mask, params, geometric_voxels=True,
-                min_cell_points=max(params.cluster.min_cell_points, 1),
-                sort_mode="full", precut_div=precut_div,
+                min_cell_points=floor, sort_mode="full",
+                precut_div=precut_div,
             )
     else:
-        def step(xyz, mask, meta):
-            return extract_step(xyz, mask, params)
+        import dataclasses
+
+        def step(xyz, mask, floor):
+            p = dataclasses.replace(
+                params,
+                cluster=dataclasses.replace(
+                    params.cluster, min_cell_points=floor
+                ),
+            )
+            return extract_step(xyz, mask, p)
 
     point_sized = ("labels", "ground_keep", "ds_xyz")
     results = []
@@ -250,7 +248,14 @@ def stream_extract(
         sources, capacity, origin=origin, wire=wire, prefetch=prefetch
     ):
         t0 = _time.perf_counter() if timings else 0.0
-        stats = step(xyz, mask, meta)
+        # a spilled cell table drops dense cells (and with them whole
+        # towers): re-run the tile at a higher cell-density floor, the
+        # retry contract of pipeline.extract_from_points
+        floor = max(params.cluster.min_cell_points, 1)
+        stats = step(xyz, mask, floor)
+        while float(np.asarray(stats["cells_overflow"])) > 0.0 and floor < 16:
+            floor = min(floor * 2 if floor > 1 else 2, 16)
+            stats = step(xyz, mask, floor)
         out = {}
         for k, v in stats.items():
             if k in point_sized and not fetch_labels:

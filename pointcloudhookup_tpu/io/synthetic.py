@@ -3,8 +3,7 @@
 The reference has no test fixtures beyond captured parse output; we
 generate our own: corridor-like point clouds (ground + vegetation +
 lattice towers + catenary lines) and GIM model trees, used by the test
-suite for round-trip/parity checks and by bench.py for workloads shaped
-like BASELINE.md's configs.
+suite for round-trip/parity checks, by bench.py and by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -66,6 +65,73 @@ def synthetic_corridor(
     pts = np.vstack(parts)
     pts += np.asarray(origin, np.float64)
     return pts, np.array(centers) + np.asarray(origin, np.float64)
+
+
+def corridor_tile(
+    n: int,
+    seed: int = 7,
+    n_towers: int = 24,
+    origin: tuple[float, float, float] = (0.0, 0.0, 0.0),
+):
+    """The benchmark corridor tile: n points over a 4 x 4 km square
+    (80% ground, 12% vegetation, the rest split over `n_towers` towers
+    along a gently winding line, no conductors).  Returns
+    (points f64[<=n, 3], tower centers f64[n_towers, 3])."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-1800, 1800, n_towers)
+    ys = 80.0 * np.sin(xs / 500.0)
+    pts, centers = synthetic_corridor(
+        rng,
+        n_ground=int(n * 0.80),
+        n_veg=int(n * 0.12),
+        towers=tuple(zip(xs, ys)),
+        pts_per_tower=max((n - int(n * 0.92)) // n_towers, 1),
+        extent=2000.0,
+        n_line=0,
+        origin=origin,
+    )
+    return pts[:n], centers
+
+
+def boundary_corridor(
+    total: int,
+    n_towers: int = 10,
+    seed: int = 3,
+    extent: float = 800.0,
+    span: float = 690.0 / 800.0,
+    tower_share: float = 0.2,
+):
+    """Corridor whose points are SORTED BY X, so D contiguous shards are
+    spatial slabs and towers straddle shard boundaries (the cross-chunk
+    merge semantics of /root/reference/test/tttt.py:104-174 are what a
+    sharded merge must reproduce).  Towers sit evenly over the central
+    `span` fraction of the x extent and hold `tower_share` of the
+    points (8% is vegetation, the rest ground); the corridor is
+    narrowed to a quarter of its width.
+    Returns (xyz f32[total, 3], mask bool[total], tower centers)."""
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(-span * extent, span * extent, n_towers)
+    ys = 25.0 * np.sin(xs / (extent * 180.0 / 800.0))
+    n_ground = int(total * (0.92 - tower_share))
+    n_veg = int(total * 0.08)
+    ppt = (total - n_ground - n_veg) // n_towers
+    pts, centers = synthetic_corridor(
+        rng,
+        n_ground=n_ground,
+        n_veg=n_veg,
+        towers=tuple(zip(xs, ys)),
+        pts_per_tower=ppt,
+        extent=extent,
+    )
+    pts[:, 1] *= 0.25  # narrow the corridor (bounds the dense-cell count)
+    centers[:, 1] *= 0.25
+    pts = pts[:total]
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    xyz = np.zeros((total, 3), np.float32)
+    xyz[: len(pts)] = pts.astype(np.float32)
+    mask = np.zeros(total, bool)
+    mask[: len(pts)] = True
+    return xyz, mask, centers
 
 
 DEFAULT_FAM_PROPS = {

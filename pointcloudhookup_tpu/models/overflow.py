@@ -163,14 +163,9 @@ def _fast_extract(points: np.ndarray, params: ExtractParams):
     from pointcloudhookup_tpu.ops.frontend_fused import fused_extract_step
 
     origin = points.mean(axis=0) if len(points) else np.zeros(3)
-    # align to the compaction kernel's 32k block when big enough for the
-    # ground pre-cut to engage (padding rides as masked rows); the
-    # single-key hier sort measures SLOWER than 2-key full end-to-end
-    # (lax.sort payloads beyond the first cost as much as keys), so the
-    # fast path is full sort + pre-cut
+    # the fast path is full sort + pre-cut (the pre-cut engages from
+    # 131072 rows)
     cap = round_up(max(len(points), 1), 1024)
-    if cap >= 131072:
-        cap = round_up(cap, 32768)
     xyz = np.zeros((cap, 3), np.float32)
     xyz[: len(points)] = (points - origin).astype(np.float32)
     mask = np.zeros(cap, bool)

@@ -121,7 +121,8 @@ def extract(
     override the full parameter tree (per-chunk parity mode etc.).
     When `output_dir` is given, each tower's points are saved to
     output_dir/tower_<label>.las like the reference; `excel_path` writes
-    the towers_info table (xlsx if an engine is available, else csv).
+    the towers_info table (pipeline.write_table: .csv, or .xlsx through
+    pandas).
     """
     rep = Reporter(progress_callback, log_callback)
     if params is None:
@@ -180,8 +181,6 @@ def _exact_fast_plan(points: np.ndarray, params: ExtractParams, cap: int):
         return None
     if cp.method == "auto" and cap <= cp.auto_grid_threshold:
         return None
-    if cap % 32768 or cp.max_cells % 1024:
-        return None
     if not len(points):
         return None
     from pointcloudhookup_tpu.ops.frontend_exact import exact_cell_plan
@@ -203,50 +202,25 @@ def _extract_stats_exact_fast(
 
     The survivor compaction starts at N/4 capacity; should a tile keep
     more, ONE retry at full capacity is always exact (survivors <= N).
-    Density-floor escalation mirrors extract_from_points' modular retry
-    loop.  The core flood table starts small (2048 — corridor tiles have
-    ~1k core cells in a ~40k dense table, and the flood cost scales with
-    the table) and on core_overflow is re-sized DIRECTLY from the spill
-    count (core_overflow = n_core - cap, so cap + spill is the exact
-    need; blind x4 escalation overshot 9-16k-core tiles to a 32768
-    table, measured ~1.6x the flood cost of the right-sized 16384);
-    only a >32768-core tile falls back to the modular path.  _ccap
-    injects a small starting capacity for tests."""
-    from pointcloudhookup_tpu.ops.frontend_exact import exact_extract_graph
-
+    Density-floor escalation mirrors the modular retry loop
+    (_extract_stats_modular).  The core flood table starts small (2048:
+    corridor tiles have ~1k core cells in a much larger dense table, and
+    the flood cost scales with the table) and on core_overflow is
+    re-sized DIRECTLY from the spill count (core_overflow = n_core -
+    cap, so cap + spill is the exact need); only a >32768-core tile
+    falls back to the modular path.  _ccap injects a small starting
+    capacity for tests."""
     cap = xyz.shape[0]
     ccap = _ccap if _ccap is not None else min(
-        round_up(max(cap // 4, 32768), 32768), cap
+        round_up(max(cap // 4, 1024), 1024), cap
     )
-    floor = params.cluster.min_cell_points
-    core_cap = _core_cap0
-    xyz_j = jnp.asarray(xyz)
-    mask_j = jnp.asarray(mask)
-    while True:
-        stats = exact_extract_graph(
-            xyz_j, mask_j, params, cell_bits=cell_bits, compact_cap=ccap,
-            max_cells=params.cluster.max_cells, min_cell_points=floor,
-            core_cap=core_cap,
-        )
-        stats = {k: np.asarray(v) for k, v in stats.items()}
-        if float(stats["core_overflow"]) > 0.0:
-            if core_cap < 32768:
-                need = core_cap + int(stats["core_overflow"])
-                core_cap = min(32768, 1 << (need - 1).bit_length())
-                continue
-            # more core cells than the largest flood table: the
-            # min-label flood is incomplete — the modular path is the
-            # correct fallback (a density-floor retry would not shrink
-            # CORE cells)
-            return None
-        if int(stats["compact_count"]) > ccap:
-            ccap = cap  # survivors <= N, so full capacity always fits
-            continue
-        if float(stats["cells_overflow"]) > 0.0 and floor < 16:
-            floor = min(floor * 2 if floor > 1 else 2, 16)
-            continue
-        break
-
+    settled = _exact_fast_settle(
+        jnp.asarray(xyz), jnp.asarray(mask), params, cell_bits, ccap,
+        _core_cap0,
+    )
+    if settled is None:
+        return None
+    stats, _ = settled
     stats.pop("core_overflow")
     labels = np.full(cap, -1, np.int32)
     labs = stats.pop("labels_sorted")
@@ -264,6 +238,44 @@ def _extract_stats_exact_fast(
     stats["labels"] = labels
     stats["ground_keep"] = keep
     return stats
+
+
+def _exact_fast_settle(xyz_j, mask_j, params: ExtractParams, cell_bits,
+                       ccap: int, core_cap: int):
+    """Run exact_extract_graph up its retry ladder (core table, survivor
+    capacity, density floor) until the result is complete.  Returns
+    (stats as numpy, the settled graph's static keyword arguments), or
+    None when the tile has more core cells than the largest flood
+    table."""
+    from pointcloudhookup_tpu.ops.frontend_exact import exact_extract_graph
+
+    cap = xyz_j.shape[0]
+    floor = params.cluster.min_cell_points
+    while True:
+        kw = dict(
+            cell_bits=cell_bits, compact_cap=ccap,
+            max_cells=params.cluster.max_cells, min_cell_points=floor,
+            core_cap=core_cap,
+        )
+        stats = exact_extract_graph(xyz_j, mask_j, params, **kw)
+        stats = {k: np.asarray(v) for k, v in stats.items()}
+        if float(stats["core_overflow"]) > 0.0:
+            if core_cap < 32768:
+                need = core_cap + int(stats["core_overflow"])
+                core_cap = min(32768, 1 << (need - 1).bit_length())
+                continue
+            # more core cells than the largest flood table: the
+            # min-label flood is incomplete — the modular path is the
+            # correct fallback (a density-floor retry would not shrink
+            # CORE cells)
+            return None
+        if int(stats["compact_count"]) > ccap:
+            ccap = cap  # survivors <= N, so full capacity always fits
+            continue
+        if float(stats["cells_overflow"]) > 0.0 and floor < 16:
+            floor = min(floor * 2 if floor > 1 else 2, 16)
+            continue
+        return stats, kw
 
 
 def extract_from_points(
@@ -286,9 +298,6 @@ def extract_from_points(
         cap = capacity
     elif params.cluster.per_chunk:
         cap = round_up(max(len(points), 1), params.cluster.chunk_size)
-    elif len(points) > params.cluster.auto_grid_threshold:
-        # fast-exact front-end wants 32768-multiple capacities
-        cap = round_up(max(len(points), 1), 32768)
     else:
         cap = round_up(max(len(points), 1), 1024)
     xyz = np.zeros((cap, 3), np.float32)
@@ -297,19 +306,29 @@ def extract_from_points(
     mask[: len(points)] = True
 
     plan = _exact_fast_plan(points, params, cap)
+    stats = None
     if plan is not None:
         stats = _extract_stats_exact_fast(xyz, mask, params, plan)
-        if stats is not None:
-            towers = towers_from_stats(stats, origin)
-            return towers, stats, origin
+    if stats is None:
+        stats = _extract_stats_modular(xyz, mask, params)
+    towers = towers_from_stats(stats, origin)
+    return towers, stats, origin
 
-    stats = extract_step(jnp.asarray(xyz), jnp.asarray(mask), params)
+
+def _extract_stats_modular(
+    xyz: np.ndarray, mask: np.ndarray, params: ExtractParams
+) -> dict:
+    """The modular extract_step with its cell-table retry contract.
+
+    Grid cell-table overflow silently drops dense cells — at corridor
+    scale (4M raw points) the 65536-cell table can lose whole towers.
+    Retry with a higher cell-density floor: each step drops more
+    sparse-vegetation cells (pure noise at min_points=80) while dense
+    structure cells survive."""
+    xyz_j = jnp.asarray(xyz)
+    mask_j = jnp.asarray(mask)
+    stats = extract_step(xyz_j, mask_j, params)
     stats = {k: np.asarray(v) for k, v in stats.items()}
-    # grid cell-table overflow silently drops dense cells — at corridor
-    # scale (4M raw points) the 65536-cell table can lose whole towers.
-    # Retry with a higher cell-density floor: each step drops more
-    # sparse-vegetation cells (pure noise at min_points=80) while dense
-    # structure cells survive, exactly the knob the fast path runs at 3.
     floor = params.cluster.min_cell_points
     while float(stats.get("cells_overflow", 0.0)) > 0.0 and floor < 16:
         floor = min(floor * 2 if floor > 1 else 2, 16)
@@ -319,38 +338,56 @@ def extract_from_points(
                 params.cluster, min_cell_points=floor
             ),
         )
-        stats = extract_step(jnp.asarray(xyz), jnp.asarray(mask), retry)
+        stats = extract_step(xyz_j, mask_j, retry)
         stats = {k: np.asarray(v) for k, v in stats.items()}
-    towers = towers_from_stats(stats, origin)
-    return towers, stats, origin
+    return stats
 
 
-def export_towers_table(towers: Sequence[Tower], path: str) -> None:
+_TOWER_COLUMNS = (
+    "ID", "经度", "纬度", "海拔高度", "杆塔高度", "北方向偏角", "宽度", "长宽比",
+)
+
+
+def write_table(path: str, columns: Sequence[str], rows: Sequence[Sequence]) -> str:
+    """Write one table as CSV (standard library), or as .xlsx when the
+    path asks for it.  .xlsx needs pandas; when pandas has no Excel
+    engine, the table goes to the .csv path beside it.  Returns the path
+    written."""
+    if path.lower().endswith(".xlsx"):
+        try:
+            import pandas as pd
+        except ImportError as e:
+            raise ValueError(
+                f"writing {path} needs pandas; install it or give a .csv path"
+            ) from e
+        try:
+            pd.DataFrame(list(rows), columns=list(columns)).to_excel(
+                path, index=False
+            )
+            return path
+        except ImportError:  # no Excel engine (openpyxl) installed
+            path = path[:-5] + ".csv"
+    import csv
+
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(columns)
+        w.writerows(rows)
+    return path
+
+
+def export_towers_table(towers: Sequence[Tower], path: str) -> str:
     """Write the towers_info table with the reference's Chinese headers
-    (/root/reference/utils/tower_extraction.py:193-202)."""
-    import pandas as pd
-
+    (/root/reference/utils/tower_extraction.py:193-202).  Returns the
+    path written."""
     rows = [
-        {
-            "ID": t.id,
-            "经度": t.center[0],
-            "纬度": t.center[1],
-            "海拔高度": t.center[2],
-            "杆塔高度": t.height,
-            "北方向偏角": t.north_angle,
-            "宽度": t.width,
-            "长宽比": t.height / max(t.width, 1e-6),
-        }
+        (
+            t.id, t.center[0], t.center[1], t.center[2], t.height,
+            t.north_angle, t.width, t.height / max(t.width, 1e-6),
+        )
         for t in towers
     ]
-    df = pd.DataFrame(rows)
-    if path.endswith(".xlsx"):
-        try:
-            df.to_excel(path, index=False)
-            return
-        except (ImportError, ModuleNotFoundError):
-            path = path[:-5] + ".csv"
-    df.to_csv(path, index=False)
+    return write_table(path, _TOWER_COLUMNS, rows)
 
 
 # ------------------------------------------------------------ reproject
@@ -364,7 +401,7 @@ def reproject_las(
     (the whole-cloud CRS batch job prototyped in
     /root/reference/test/005.py — 1M-point chunks through pyproj).
 
-    TPU-native path: one host-f64 LocalTaylor expansion around the tile
+    Device path: one host-f64 LocalTaylor expansion around the tile
     centroid, then f32 delta evaluation on device in `batch`-point
     blocks — sub-mm agreement with the f64 inverse over a +-2 km tile.
     Output LAS stores degrees at 1e-7 scale.  Returns the point count.
@@ -452,21 +489,27 @@ class MatchResult:
 
     def to_csv(self, path: str) -> None:
         """Side-by-side tables; pairing is explicit via 配对 columns (the
-        reference's Qt panel conveyed it with row highlight colors)."""
-        import pandas as pd
-
+        reference's Qt panel conveyed it with row highlight colors).
+        The shorter table's rows are padded with empty cells."""
         pair_of_gim = {gi: pi for gi, pi in self.pairs}
         pair_of_pc = {pi: gi for gi, pi in self.pairs}
-        left = pd.DataFrame(
-            self.gim_rows, columns=["杆塔编号", "纬度", "经度", "高程", "北方向偏角"]
-        )
-        left.insert(0, "配对PC行", [pair_of_gim.get(i, "") for i in range(len(self.gim_rows))])
-        right = pd.DataFrame(
-            self.pc_rows,
-            columns=["杆塔编号(PC)", "纬度(WGS84)", "经度(WGS84)", "高程(正高)", "北方向偏角(PC)"],
-        )
-        right.insert(0, "配对GIM行", [pair_of_pc.get(i, "") for i in range(len(self.pc_rows))])
-        pd.concat([left, right], axis=1).to_csv(path, index=False)
+        columns = [
+            "配对PC行", "杆塔编号", "纬度", "经度", "高程", "北方向偏角",
+            "配对GIM行", "杆塔编号(PC)", "纬度(WGS84)", "经度(WGS84)",
+            "高程(正高)", "北方向偏角(PC)",
+        ]
+        rows = []
+        for i in range(max(len(self.gim_rows), len(self.pc_rows))):
+            left = (
+                [pair_of_gim.get(i, ""), *self.gim_rows[i]]
+                if i < len(self.gim_rows) else [""] * 6
+            )
+            right = (
+                [pair_of_pc.get(i, ""), *self.pc_rows[i]]
+                if i < len(self.pc_rows) else [""] * 6
+            )
+            rows.append(left + right)
+        write_table(path, columns, rows)
 
     # rotating row-highlight palette, as in the reference's Qt panel
     # (/root/reference/utils/table_match_gim.py:288: lightblue /

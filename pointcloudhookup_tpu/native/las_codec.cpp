@@ -1,4 +1,4 @@
-// Native LAS point codec: the host-side decode feeding the TPU.
+// Native LAS point codec: the host-side decode feeding the device.
 //
 // The reference delegates LAS I/O to laspy (Python); at 50M+ point
 // corridors (BASELINE config 5) the host decode sits on the critical

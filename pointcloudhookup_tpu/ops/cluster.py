@@ -1,12 +1,12 @@
-"""DBSCAN-equivalent Euclidean clustering on TPU.
+"""DBSCAN-equivalent Euclidean clustering.
 
 The reference delegates clustering to sklearn DBSCAN (eps=8.0,
 min_samples=80, ball_tree) over 50k-point chunks
 (/root/reference/utils/tower_extraction.py:96-122).  Trees are
-pointer-chasing structures that do not map to TPU; instead we compute
-neighborhoods with *tiled pairwise distances* (an [N,3]x[3,T] matmul per
-tile — MXU-friendly, memory bounded by N*T) and cluster via iterative
-min-label propagation with pointer-jumping (union-find style path
+pointer-chasing structures; instead neighbourhoods come from *tiled
+pairwise distances* (ops/neighbor.py: one fused compare-and-reduce per
+column tile, memory bounded by N*tile) and clusters from iterative
+min-label propagation with pointer jumping (union-find style path
 compression), which converges in O(log diameter) passes for the dense
 neighborhoods this workload produces (eps=8 m after 0.1 m voxelization).
 
@@ -29,149 +29,39 @@ import jax.numpy as jnp
 from jax import lax
 
 
-def _tile_dist2(xyz, sq, pts_j, sq_j):
-    """Squared distances [N, T] between all points and one tile.
-
-    precision='highest': JAX's DEFAULT matmul precision runs f32 dots in
-    reduced (bf16-pass) precision, which at corridor coordinate scales
-    (|p| ~ 1e2..1e3 m, |p|^2 ~ 1e5-1e6) produces distance errors far above
-    eps^2; full f32 is required for correct neighborhoods.  The K=3
-    contraction is bandwidth-bound anyway, so the extra MXU passes are free.
-    """
-    return sq[:, None] + sq_j[None, :] - 2.0 * jnp.dot(
-        xyz, pts_j.T, precision=jax.lax.Precision.HIGHEST
-    )
-
-
-def _pick_tile(n: int, target: int) -> int:
-    """Largest divisor of n that is <= target."""
-    for t in range(min(target, n), 0, -1):
-        if n % t == 0:
-            return t
-    return 1
-
-
-# VMEM budget for the fused Pallas path: six 1-D f32/i32 arrays resident
-_PALLAS_MAX_N = 262144
-
-
 def dbscan(
     xyz,
     mask,
     eps,
     min_points: int,
     *,
-    tile: int | None = None,
+    tile: int = 512,
     max_iters: int = 64,
-    use_pallas: bool | None = None,
 ):
     """Cluster points within eps (DBSCAN semantics).
 
-    xyz: f32[N,3], mask: bool[N].  `tile` (column-tile width of the
-    pairwise-distance pass) defaults to the largest divisor of N <= 512.
-    Returns (labels i32[N], core bool[N]); labels are compact cluster ids
-    (0..K-1 ordered by min core index), -1 for noise/invalid.
-
-    On TPU, tables up to 256k points run the fused Pallas
-    neighbor-reduction kernel (whole table VMEM-resident).
+    xyz: f32[N,3], mask: bool[N].  `tile` is the column-tile width of
+    the pairwise passes.  Returns (labels i32[N], core bool[N]); labels
+    are compact cluster ids (0..K-1 ordered by min core index), -1 for
+    noise/invalid.
     """
-    n = xyz.shape[0]
-    if use_pallas is None:
-        use_pallas = (
-            jax.default_backend() == "tpu" and n % 1024 == 0 and n <= _PALLAS_MAX_N
-        )
-    tile = _pick_tile(n, 512) if tile is None else tile
     return _dbscan_jit(
-        xyz, mask, eps, min_points, tile=tile, max_iters=max_iters,
-        use_pallas=use_pallas,
+        xyz, mask, eps, min_points, tile=tile, max_iters=max_iters
     )
 
 
-@functools.partial(
-    jax.jit, static_argnames=("min_points", "tile", "max_iters", "use_pallas")
-)
-def _dbscan_jit(
-    xyz, mask, eps, min_points: int, *, tile: int, max_iters: int,
-    use_pallas: bool = False,
-):
+@functools.partial(jax.jit, static_argnames=("min_points", "tile", "max_iters"))
+def _dbscan_jit(xyz, mask, eps, min_points: int, *, tile: int, max_iters: int):
+    from pointcloudhookup_tpu.ops.neighbor import cluster_cells
+
     n = xyz.shape[0]
-    if n % tile:
-        raise ValueError(f"capacity {n} must be a multiple of tile {tile}")
-    nt = n // tile
     eps2 = jnp.square(jnp.float32(eps))
-    inf = jnp.int32(n)
-
-    if use_pallas:
-        from pointcloudhookup_tpu.ops.pallas.neighbor import neighbor_reduce
-
-        pop, _ = neighbor_reduce(
-            xyz, jnp.zeros(n, jnp.int32), mask.astype(jnp.float32), mask, eps2,
-            sentinel=n, mode="pop",
-        )
-        counts = pop.astype(jnp.int32)
-        core = mask & (counts >= min_points)
-
-        def neighbor_min(labels, allowed):
-            _, lmin = neighbor_reduce(
-                xyz, labels, jnp.zeros(n, jnp.float32), allowed, eps2,
-                sentinel=n, mode="lmin",
-            )
-            return lmin
-
-    else:
-        sq = jnp.sum(xyz * xyz, axis=1)
-
-        def get_tile(arr, j):
-            return lax.dynamic_slice_in_dim(arr, j * tile, tile, axis=0)
-
-        # ---- pass 1: neighbor counts -> core mask
-        def count_body(acc, j):
-            d2 = _tile_dist2(xyz, sq, get_tile(xyz, j), get_tile(sq, j))
-            nb = (d2 <= eps2) & get_tile(mask, j)[None, :]
-            return acc + jnp.sum(nb.astype(jnp.int32), axis=1), None
-
-        counts, _ = lax.scan(count_body, jnp.zeros(n, jnp.int32), jnp.arange(nt))
-        core = mask & (counts >= min_points)
-
-        # ---- tiled min-label-over-neighbors reduction
-        def neighbor_min(labels, allowed):
-            def body(acc, j):
-                d2 = _tile_dist2(xyz, sq, get_tile(xyz, j), get_tile(sq, j))
-                nb = (d2 <= eps2) & get_tile(allowed, j)[None, :]
-                lmin = jnp.min(
-                    jnp.where(nb, get_tile(labels, j)[None, :], inf), axis=1
-                )
-                return jnp.minimum(acc, lmin), None
-
-            res, _ = lax.scan(body, jnp.full(n, inf, jnp.int32), jnp.arange(nt))
-            return res
-
-    # ---- pass 2: propagate min representative over the core-core graph
-    labels0 = jnp.where(core, jnp.arange(n, dtype=jnp.int32), inf)
-
-    def cond(state):
-        _, changed, it = state
-        return changed & (it < max_iters)
-
-    def step(state):
-        labels, _, it = state
-        new = jnp.where(core, jnp.minimum(labels, neighbor_min(labels, core)), labels)
-        # pointer jumping: a label is a representative point index, so
-        # following it once (labels[labels]) shortcuts chains.
-        for _ in range(2):
-            new = jnp.where(
-                core, jnp.minimum(new, new[jnp.clip(new, 0, n - 1)]), new
-            )
-        return new, jnp.any(new != labels), it + 1
-
-    labels, _, _ = lax.while_loop(
-        cond, step, (labels0, jnp.bool_(True), jnp.int32(0))
+    raw, pop = cluster_cells(
+        xyz, mask.astype(jnp.float32), mask, eps2, min_points,
+        max_iter=max_iters, tile=tile,
     )
-
-    # ---- pass 3: border points adopt the min core-neighbor representative
-    border = neighbor_min(labels, core)
-    raw = jnp.where(core, labels, jnp.where(mask, border, inf))
-    return compact_labels(raw, inf), core
+    core = mask & (pop >= jnp.float32(min_points))
+    return compact_labels(raw, jnp.int32(n)), core
 
 
 def compact_labels(raw, inf):
@@ -179,10 +69,7 @@ def compact_labels(raw, inf):
     0..K-1 ordered by ascending representative; noise -> -1.
 
     Sort-rank-unsort: sort (value, row), rank each run by a cumsum of
-    run starts, sort back by row.  The previous searchsorted delivery
-    cost log2(M) gather rounds on TPU (~several ms at 64k); a
-    value-indexed scatter table costs an [M]-row scatter (~1 ms); two
-    small payload sorts cost ~0.2 ms each and work on every backend."""
+    run starts, sort back by row."""
     n = raw.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
     sorted_lab, src = lax.sort((raw, iota), num_keys=1)
@@ -200,19 +87,18 @@ def dbscan_chunked(
     min_points: int,
     *,
     chunk_size: int = 50_000,
-    tile: int | None = None,
+    tile: int = 512,
     max_iters: int = 64,
 ):
     """Reference-parity chunked clustering: each contiguous chunk of
     `chunk_size` points is clustered independently and labels are offset
     so they stay globally unique (ref: utils/tower_extraction.py:104-116;
     the reference never merges across chunks).  Capacity must be a
-    multiple of chunk_size (which must be a multiple of tile).
+    multiple of chunk_size.
     """
     n = xyz.shape[0]
     if n % chunk_size:
         raise ValueError(f"capacity {n} not a multiple of chunk_size {chunk_size}")
-    tile = _pick_tile(chunk_size, 512) if tile is None else tile
     nc = n // chunk_size
     xyz_c = xyz.reshape(nc, chunk_size, 3)
     mask_c = mask.reshape(nc, chunk_size)

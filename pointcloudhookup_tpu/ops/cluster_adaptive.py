@@ -1,4 +1,4 @@
-"""Knob-free adaptive clustering — the TPU-native analogue of the
+"""Knob-free adaptive clustering — the device analogue of the
 reference's HDBSCAN path (/root/reference/test/008.py:245-268, which
 switches to HDBSCAN(boruvka_kdtree, min_cluster_size) when available so
 the operator never tunes eps).
@@ -115,7 +115,7 @@ def adaptive_cluster(
 def _filter_small_clusters(labels, min_cluster_size: int, max_labels: int = 4096):
     """Demote clusters with fewer than min_cluster_size members to
     noise.  Sort-free on the read side: one label sort + searchsorted
-    run bounds (TPU scatter-adds serialize; sorts don't)."""
+    run bounds."""
     n = labels.shape[0]
     lab = jnp.where(labels >= 0, labels, max_labels).astype(jnp.int32)
     lab_s = lax.sort((lab,), num_keys=1)[0]

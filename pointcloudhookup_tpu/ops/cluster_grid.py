@@ -1,8 +1,8 @@
 """Grid-accelerated Euclidean clustering (the fast path).
 
 `ops.cluster.dbscan` is exact but O(N^2) in the filtered point count; at
-corridor scale (BASELINE config 5) the TPU-native way is to quantize
-space into cells of eps/2 and cluster the CELL graph:
+corridor scale the way out is to quantize space into cells of eps/2 and
+cluster the CELL graph:
 
   * all points in one cell are mutually within eps (cell diagonal
     (eps/2)*sqrt(3) < eps), so per-point neighborhoods are approximated
@@ -10,8 +10,8 @@ space into cells of eps/2 and cluster the CELL graph:
   * cells are built with one device sort + segment reductions (no hash
     maps), giving a packed cell table of M << N entries;
   * core/connectivity/label propagation then run on the M-cell graph —
-    O(M^2) tiled passes instead of O(N^2) — and point labels are a
-    single gather from cell labels.
+    O(M^2) tiled passes (ops/neighbor.py) instead of O(N^2) — and point
+    labels are a single gather from cell labels.
 
 Semantics are cell-quantized DBSCAN: identical partitions whenever
 cluster separations are larger than ~2 cells (towers are hundreds of
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from pointcloudhookup_tpu.ops.cluster import compact_labels
+from pointcloudhookup_tpu.ops.neighbor import cluster_cells
 
 _SENTINEL = jnp.int32(2**30)
 
@@ -37,7 +38,7 @@ _SENTINEL = jnp.int32(2**30)
     jax.jit,
     static_argnames=(
         "min_points", "max_cells", "tile", "max_iters", "min_cell_points",
-        "use_pallas", "return_overflow",
+        "return_overflow",
     ),
 )
 def grid_dbscan(
@@ -50,7 +51,6 @@ def grid_dbscan(
     tile: int = 1024,
     max_iters: int = 64,
     min_cell_points: int = 1,
-    use_pallas: bool | None = None,
     return_overflow: bool = False,
 ):
     """Cell-graph DBSCAN.
@@ -71,8 +71,6 @@ def grid_dbscan(
     """
     n = xyz.shape[0]
     m = max_cells
-    if m % tile:
-        raise ValueError(f"max_cells {m} must be a multiple of tile {tile}")
     eps = jnp.float32(eps)
     cell = eps / 2.0
     big = jnp.float32(3.0e38)
@@ -94,7 +92,7 @@ def grid_dbscan(
 
     # ---- per-row segment population: reverse segmented scan puts the
     # total at the start row; a forward max-scan broadcasts it across the
-    # segment (scan+scan beats scan+gather on TPU)
+    # segment (scan+scan instead of scan+gather)
     totals = segmented_scan(jnp.add, w, is_start, reverse=True)
     count_row = segmented_scan(
         jnp.maximum, jnp.where(is_start, totals, 0.0), is_start
@@ -128,85 +126,13 @@ def grid_dbscan(
     # point -> packed cell map back in original order (unsort via sort)
     _, cell_of_point = lax.sort((order, cell_sorted), num_keys=1)
 
-    # ---- cell-graph passes: fused Pallas kernel on TPU (the whole cell
-    # table stays VMEM-resident), tiled lax fallback elsewhere
-    eps2 = eps * eps
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-
-    if use_pallas:
-        from pointcloudhookup_tpu.ops.pallas.neighbor import neighbor_reduce
-
-        def _reduce(labels, weights, allowed, mode):
-            return neighbor_reduce(
-                centers, labels, weights, allowed, eps2, sentinel=m,
-                mode=mode,
-            )
-
-        pop, _ = _reduce(jnp.zeros(m, jnp.int32), counts, cell_alive, "pop")
-        core_cell = cell_alive & (pop >= min_points)
-
-        def neighbor_min(labels, allowed):
-            _, lmin = _reduce(
-                labels, jnp.zeros(m, jnp.float32), allowed, "lmin"
-            )
-            return lmin
-
-    else:
-        sq = jnp.sum(centers * centers, axis=1)
-        nt = m // tile
-
-        def get_tile(arr, j):
-            return lax.dynamic_slice_in_dim(arr, j * tile, tile, axis=0)
-
-        def tile_d2(j):
-            cj = get_tile(centers, j)
-            sqj = get_tile(sq, j)
-            return sq[:, None] + sqj[None, :] - 2.0 * jnp.dot(
-                centers, cj.T, precision=jax.lax.Precision.HIGHEST
-            )
-
-        # neighborhood population: sum of counts of cells within eps
-        def pop_body(acc, j):
-            nb = (tile_d2(j) <= eps2) & get_tile(cell_alive, j)[None, :]
-            return acc + jnp.sum(nb * get_tile(counts, j)[None, :], axis=1), None
-
-        pop, _ = lax.scan(pop_body, jnp.zeros(m, jnp.float32), jnp.arange(nt))
-        core_cell = cell_alive & (pop >= min_points)
-
-        def neighbor_min(labels, allowed):
-            def body(acc, j):
-                nb = (tile_d2(j) <= eps2) & get_tile(allowed, j)[None, :]
-                lmin = jnp.min(jnp.where(nb, get_tile(labels, j)[None, :], m), axis=1)
-                return jnp.minimum(acc, lmin), None
-
-            res, _ = lax.scan(body, jnp.full(m, m, jnp.int32), jnp.arange(nt))
-            return res
-
-    labels0 = jnp.where(core_cell, jnp.arange(m, dtype=jnp.int32), m)
-
-    def step(state):
-        labels, _, it = state
-        new = jnp.where(
-            core_cell, jnp.minimum(labels, neighbor_min(labels, core_cell)), labels
-        )
-        # 4 pointer-jump hops per round: m-sized gathers are ~free next
-        # to an O(M^2) kernel pass, and each halving of rounds saves one
-        for _ in range(4):
-            new = jnp.where(
-                core_cell, jnp.minimum(new, new[jnp.clip(new, 0, m - 1)]), new
-            )
-        return new, jnp.any(new != labels), it + 1
-
-    cell_labels, _, _ = lax.while_loop(
-        lambda s: s[1] & (s[2] < max_iters),
-        step,
-        (labels0, jnp.bool_(True), jnp.int32(0)),
+    # ---- cell-graph DBSCAN over the packed table (tiled pairwise
+    # passes, min-label flood with pointer jumping)
+    cell_labels, pop = cluster_cells(
+        centers, counts, cell_alive, eps * eps, min_points,
+        max_iter=max_iters, tile=tile,
     )
-    border = neighbor_min(cell_labels, core_cell)
-    cell_labels = jnp.where(
-        core_cell, cell_labels, jnp.where(cell_alive, border, m)
-    )
+    core_cell = cell_alive & (pop >= jnp.float32(min_points))
     cell_labels = compact_labels(cell_labels, jnp.int32(m))
 
     # ---- back to points

@@ -15,21 +15,21 @@ an exact program:
     fast path's pre-sort sample there is no sample-vs-final threshold
     discrepancy to provision for: the cut below uses the exact base;
   * above-ground survivors (raw f32 coordinates + original row index)
-    are stream-compacted to a fixed N/compact_div capacity with the
-    butterfly-concentrator kernel (ops/pallas/compactrows.py), so the
-    sort and every downstream pass run at the survivor count (~15-25%
-    of a corridor tile);
+    are stream-compacted to a fixed N/compact_div capacity
+    (ops/compact.py), so the sort and every downstream pass run at the
+    survivor count (~15-25% of a corridor tile);
   * ONE single-u32-key sort (tight-interleaved eps/2 cell key, raw
     coordinates riding as payloads) replaces grid_dbscan's 3-key sort +
     pack sort + unsort;
-  * the cell-graph clustering runs in the fused VMEM-resident kernel
-    (ops/pallas/cluster_converge.py) — identical partition semantics to
+  * the cell-graph clustering runs a pairwise population pass over the
+    dense-cell table and the min-label flood on its compacted core
+    cells only (ops/neighbor.py) -- identical partition semantics to
     ops/cluster_grid.py::grid_dbscan: same eps/2 cells anchored at the
     same f32 min corner, same center-distance connectivity, same
     pop >= min_points core rule, same border adoption (the min-label
     fixpoint is seed-order independent);
   * per-cluster OBB statistics accumulate sort-free over the raw
-    coordinates (ops/pallas/obb_accum.py::obb_accumulate_xyz) — exact
+    coordinates (ops/obb_accum.py::obb_accumulate_xyz) -- exact
     member sets, exact centroids/extremes, no per-cluster cap.
 
 Per-point labels come back in cell-sorted order together with each
@@ -53,42 +53,38 @@ from jax import lax
 
 from pointcloudhookup_tpu.config import ExtractParams
 from pointcloudhookup_tpu.ops.cluster import compact_labels
+from pointcloudhookup_tpu.ops.compact import compact_indices, compact_rows_multi
 from pointcloudhookup_tpu.ops.morton import interleave_tight
+from pointcloudhookup_tpu.ops.neighbor import cluster_cells, neighbor_reduce
+from pointcloudhookup_tpu.ops.obb_accum import obb_accumulate_xyz
 from pointcloudhookup_tpu.ops.percentile import masked_percentile_bisect
 from pointcloudhookup_tpu.ops.segments import segmented_scan
 
-_COMPACT_BLOCK = 32768
 _KEY_SENTINEL = jnp.uint32(0xFFFFFFFF)
 
 def _core_flood_cluster(
-    centers, ccount, cell_alive, eps2, min_points, on_tpu: bool,
+    centers, ccount, cell_alive, eps2, min_points,
     core_cap: int = 16384,
-    _cut: int = 0,
 ):
     """grid_dbscan's cell-graph fixpoint, restructured so the REPEATED
-    passes run on the tiny core subgraph instead of the full table:
+    passes run on the small core subgraph instead of the full table:
 
-      1. ONE fused pairwise pass computes every dense cell's eps-ball
-         population (ops/pallas/neighbor.py) -> core mask.  Sparse
-         vegetation dominates a corridor's dense-cell table (~57k cells
-         at the 4M bench tile) but almost none of it is core (~1k
-         cells): paying O(pairs) once is unavoidable (every cell's
-         count feeds its neighbors' pops), paying it per label-walk is
-         not — the in-kernel converge loop cost 27 ms here.
+      1. ONE tiled pairwise pass (ops/neighbor.py) computes every dense
+         cell's eps-ball population -> core mask.  Sparse vegetation
+         dominates a corridor's dense-cell table but almost none of it
+         is core: paying O(pairs) once is unavoidable (every cell's
+         count feeds its neighbours' pops), paying it per label walk is
+         not.
       2. Core cells compact into a [core_cap] table; the min-label
-         flood (cluster_cells, min_points=0 so the kernel floods every
-         row) runs there at ~core-count cost.  Seeds are core-table
-         indices; the compaction is order-preserving, so the flood's
-         min-index representative maps back to the min PACKED index —
-         identical labels to grid_dbscan's full-table flood.
-      3. Border adoption is ONE more neighbor_reduce pass in "lmin"
-         mode with allowed=core: the kernel's column culling uses
-         allowed-only AABBs and core cells occupy a handful of
-         granules, so nearly every block pair culls away (~0.9 ms; an
-         XLA [M, core-tile] masked-min pass cost 8.5 ms — poor fusion
-         of the [M, 1024] intermediates).
+         flood (cluster_cells, min_points=0 so every row floods) runs
+         there at core-count cost.  The compaction is order-preserving,
+         so the flood's min-index representative maps back to the min
+         PACKED index: identical labels to grid_dbscan's full-table
+         flood.
+      3. Border adoption is ONE more pass in "lmin" mode with
+         allowed=core.
 
-    Returns (labels i32[M] — representative packed index, M = noise —
+    Returns (labels i32[M] -- representative packed index, M = noise --
     and core_overflow f32: core cells beyond core_cap, which makes the
     flood incomplete; callers must treat the result as invalid and fall
     back)."""
@@ -97,33 +93,16 @@ def _core_flood_cluster(
     iota_m = jnp.arange(m, dtype=jnp.int32)
 
     # -- 1. pop over the full dense table (one pairwise pass)
-    if on_tpu:
-        from pointcloudhookup_tpu.ops.pallas.neighbor import neighbor_reduce
-
-        pop, _ = neighbor_reduce(
-            centers, jnp.zeros(m, jnp.int32), ccount, cell_alive, eps2,
-            sentinel=m, mode="pop",
-        )
-    else:
-        from pointcloudhookup_tpu.ops.pallas.neighbor import (
-            neighbor_reduce_reference,
-        )
-
-        pop, _ = neighbor_reduce_reference(
-            centers, jnp.zeros(m, jnp.int32), ccount, cell_alive, eps2,
-            sentinel=m,
-        )
+    pop, _ = neighbor_reduce(
+        centers, jnp.zeros(m, jnp.int32), ccount, cell_alive, eps2,
+        sentinel=m, mode="pop",
+    )
     core = cell_alive & (pop >= jnp.float32(min_points))
-    if _cut == 41:
-        return pop, jnp.float32(0.0)
 
     # -- 2. compact core cells; flood on the small table
-    from pointcloudhookup_tpu.ops.obb import _compact_valid_rows
-
     cap = min(core_cap, m)
-    (core_rows,), n_core, core_overflow = _compact_valid_rows(
-        core, (iota_m,), cap, fill=sent
-    )
+    (core_rows,), n_core = compact_rows_multi(core, (iota_m,), cap)
+    core_overflow = jnp.maximum(n_core - cap, 0).astype(jnp.float32)
     slot_ok = jnp.arange(cap, dtype=jnp.int32) < jnp.minimum(
         n_core, jnp.int32(cap)
     )
@@ -131,17 +110,8 @@ def _core_flood_cluster(
     core_centers = jnp.where(
         slot_ok[:, None], centers[jnp.clip(core_rows, 0, m - 1)], big
     )
-    if on_tpu:
-        from pointcloudhookup_tpu.ops.pallas.cluster_converge import (
-            cluster_cells,
-        )
-    else:
-        from pointcloudhookup_tpu.ops.pallas.cluster_converge import (
-            cluster_cells_reference as cluster_cells,
-        )
     tab_labels, _ = cluster_cells(
-        core_centers, jnp.ones(cap, jnp.float32), slot_ok,
-        jnp.arange(cap, dtype=jnp.int32), eps2, 0.0,
+        core_centers, jnp.ones(cap, jnp.float32), slot_ok, eps2, 0.0,
     )
     # core-table index -> original packed index (order-preserving)
     rep = jnp.where(
@@ -150,34 +120,14 @@ def _core_flood_cluster(
         sent,
     )
 
-    if _cut == 42:
-        return rep, core_overflow
-
-    # -- 3. labels back on the full table + border adoption.  Border is
-    # a SECOND neighbor_reduce pass with allowed=core: the kernel's
-    # column culling uses allowed-only AABBs, and core cells live in a
-    # handful of 1024-granules (the towers), so nearly every block pair
-    # culls away — measured ~1 ms where an XLA [M, core-tile] masked-min
-    # pass cost 8.5 ms (poor fusion of the [M, 1024] intermediates).
+    # -- 3. labels back on the full table + border adoption
     lab_core = jnp.full(m, sent).at[
         jnp.where(slot_ok, core_rows, sent)
     ].set(jnp.where(slot_ok, rep, sent), mode="drop")
-    if on_tpu:
-        from pointcloudhookup_tpu.ops.pallas.neighbor import neighbor_reduce
-
-        _, border = neighbor_reduce(
-            centers, lab_core, jnp.zeros(m, jnp.float32), core, eps2,
-            sentinel=m, mode="lmin",
-        )
-    else:
-        from pointcloudhookup_tpu.ops.pallas.neighbor import (
-            neighbor_reduce_reference,
-        )
-
-        _, border = neighbor_reduce_reference(
-            centers, lab_core, jnp.zeros(m, jnp.float32), core, eps2,
-            sentinel=m,
-        )
+    _, border = neighbor_reduce(
+        centers, lab_core, jnp.zeros(m, jnp.float32), core, eps2,
+        sentinel=m, mode="lmin",
+    )
     labels = jnp.where(core, lab_core, jnp.where(cell_alive, border, sent))
     return labels, core_overflow
 
@@ -202,15 +152,11 @@ def exact_cell_plan(span_xyz, eps: float):
     return tuple(bits)
 
 
-def _round_up(v: int, mult: int) -> int:
-    return -(-v // mult) * mult
-
-
 @functools.partial(
     jax.jit,
     static_argnames=(
         "params", "cell_bits", "compact_cap", "max_cells",
-        "min_cell_points", "core_cap", "interpret", "_cut", "axis_name",
+        "min_cell_points", "core_cap", "_cut", "axis_name",
         "local_rows", "return_acc",
     ),
 )
@@ -224,7 +170,6 @@ def exact_extract_graph(
     max_cells: int = 65536,
     min_cell_points: int = 1,
     core_cap: int = 16384,
-    interpret: bool = False,
     _cut: int = 0,
     axis_name: str | None = None,
     local_rows: int | None = None,
@@ -232,8 +177,8 @@ def exact_extract_graph(
 ):
     """Exact extraction forward step (see module docstring).
 
-    xyz f32[N,3] centered coords (N a multiple of 32768), mask bool[N];
-    compact_cap: survivor capacity (multiple of 32768, <= N);
+    xyz f32[N,3] centered coords, mask bool[N];
+    compact_cap: survivor capacity (<= N);
     cell_bits: static per-axis key widths from exact_cell_plan();
     core_cap: core-cell flood-table capacity — corridor tiles have ~1k
       core cells in a ~40k dense table, so a small table floods much
@@ -256,8 +201,8 @@ def exact_extract_graph(
         anchor, so every shard cuts and quantizes identically;
       local_rows: rows >= local_rows are halo ghosts — they participate
         in clustering (full eps-neighborhood at tile boundaries) but are
-        excluded from the OBB accumulators (their home shard accumulates
-        them), making the gathered merge exact;
+        excluded from the ground percentile and the OBB accumulators
+        (their home shard counts them), making the gathered merge exact;
       return_acc: also return the raw accumulators under 'acc' for the
         cross-shard exact merge.
     """
@@ -268,18 +213,8 @@ def exact_extract_graph(
     c = compact_cap
     gp = params.ground
     cp = params.cluster
-    on_tpu_kernels = jax.default_backend() == "tpu" and not interpret
-    if on_tpu_kernels and (n % _COMPACT_BLOCK or c % _COMPACT_BLOCK):
-        # the compaction kernel's block constraint; the XLA reference
-        # path (CPU tests) takes any size
-        raise ValueError(
-            f"N={n} and compact_cap={c} must be multiples of {_COMPACT_BLOCK}"
-        )
-    if m % 1024:
-        raise ValueError(f"max_cells {m} must be a multiple of 1024")
     if sum(cell_bits) > 31:
         raise ValueError(f"cell_bits {cell_bits} exceed 31 bits")
-    on_tpu = on_tpu_kernels
     big = jnp.float32(3.0e38)
     eps = jnp.float32(cp.eps)
     cell = eps / 2.0
@@ -288,9 +223,14 @@ def exact_extract_graph(
     # /root/reference/utils/tower_extraction.py:83-89); with axis_name
     # the base and the retry decision are global and replicated
     z = xyz[:, 2]
-    base = masked_percentile_bisect(z, mask, gp.percentile, axis_name)
+    # halo ghosts are counted by their home shard: the percentile and
+    # the retry count see local rows only
+    local = mask
+    if local_rows is not None:
+        local = mask & (jnp.arange(n, dtype=jnp.int32) < jnp.int32(local_rows))
+    base = masked_percentile_bisect(z, local, gp.percentile, axis_name)
     keep0 = mask & (z > base + jnp.float32(gp.offset))
-    n0 = jnp.sum(keep0.astype(jnp.int32))
+    n0 = jnp.sum((keep0 & local).astype(jnp.int32))
     if axis_name is not None:
         n0 = lax.psum(n0, axis_name)
     used_retry = n0 < gp.min_points_after
@@ -298,32 +238,13 @@ def exact_extract_graph(
         used_retry, mask & (z > base + jnp.float32(gp.retry_offset)), keep0
     )
 
-    # _cut: cumulative-profiling early exits (scripts/profile_exact.py)
-    if _cut == 1:
-        return dict(base=base, keep=keep)
-
     # ---- compact survivors (raw coords + original row index)
-    if on_tpu:
-        from pointcloudhookup_tpu.ops.pallas.compactrows import (
-            compact_rows_multi,
-        )
-    else:
-        from pointcloudhookup_tpu.ops.pallas.compactrows import (
-            compact_rows_multi_reference as compact_rows_multi,
-        )
     idx = jnp.arange(n, dtype=jnp.int32)
-    xb = lax.bitcast_convert_type(xyz[:, 0], jnp.int32)
-    yb = lax.bitcast_convert_type(xyz[:, 1], jnp.int32)
-    zb = lax.bitcast_convert_type(z, jnp.int32)
-    (xb, yb, zb, rows_c), cnt = compact_rows_multi(keep, (xb, yb, zb, idx), c)
+    (xs0, ys0, zs0, rows_c), cnt = compact_rows_multi(
+        keep, (xyz[:, 0], xyz[:, 1], z, idx), c
+    )
     compact_over = (cnt > jnp.int32(c)).astype(jnp.float32)
-    xs0 = lax.bitcast_convert_type(xb, jnp.float32)
-    ys0 = lax.bitcast_convert_type(yb, jnp.float32)
-    zs0 = lax.bitcast_convert_type(zb, jnp.float32)
     valid0 = jnp.arange(c, dtype=jnp.int32) < jnp.minimum(cnt, jnp.int32(c))
-
-    if _cut == 2:
-        return dict(xs0=xs0, cnt=cnt)
 
     # ---- cell keys: identical assignment arithmetic to grid_dbscan
     # (floor((p - mn) / (eps/2)) against the kept-set f32 min corner;
@@ -346,9 +267,6 @@ def exact_extract_graph(
     ck_s, xs, ys, zs, rows_s = lax.sort(
         (ck, xs0, ys0, zs0, rows_c), num_keys=1
     )
-    if _cut == 3:
-        return dict(ck_s=ck_s, xs=xs)
-
     valid_s = ck_s != _KEY_SENTINEL
     c_start = (ck_s != jnp.roll(ck_s, 1)).at[0].set(True)
 
@@ -358,46 +276,12 @@ def exact_extract_graph(
     )
     dense_start = c_start & valid_s & (ctot >= jnp.int32(min_cell_points))
 
-    # ---- pack the dense-cell table.  The compaction routes the
-    # per-cell payloads (population + a member coordinate) alongside
-    # the start-row positions: 4 extra channels in one kernel pass cost
-    # ~0.4 ms where four [m]-sized random gathers from [C] cost ~1.5 ms.
+    # ---- pack the dense-cell table: start row of every dense cell
     n_dense = jnp.sum(dense_start.astype(jnp.int32))
     cell_alive = jnp.arange(m, dtype=jnp.int32) < n_dense
-    if on_tpu:
-        from pointcloudhookup_tpu.ops.pallas.compactrows import (
-            compact_rows_multi,
-        )
-
-        mcap = _round_up(max(m, _COMPACT_BLOCK), _COMPACT_BLOCK)
-        pos = jnp.arange(c, dtype=jnp.int32)
-        (rows_packed, ctot_p, pxb, pyb, pzb), _ = compact_rows_multi(
-            dense_start,
-            (
-                pos,
-                ctot,
-                lax.bitcast_convert_type(xs, jnp.int32),
-                lax.bitcast_convert_type(ys, jnp.int32),
-                lax.bitcast_convert_type(zs, jnp.int32),
-            ),
-            mcap,
-        )
-        rows_m = jnp.minimum(rows_packed[:m], jnp.int32(c - 1))
-        ccount = jnp.where(cell_alive, ctot_p[:m].astype(jnp.float32), 0.0)
-        px = lax.bitcast_convert_type(pxb[:m], jnp.float32)
-        py = lax.bitcast_convert_type(pyb[:m], jnp.float32)
-        pz = lax.bitcast_convert_type(pzb[:m], jnp.float32)
-    else:
-        csum = jnp.cumsum(dense_start.astype(jnp.int32))
-        rows_m = jnp.clip(
-            jnp.searchsorted(
-                csum, jnp.arange(1, m + 1, dtype=jnp.int32), side="left"
-            ),
-            0,
-            c - 1,
-        ).astype(jnp.int32)
-        ccount = jnp.where(cell_alive, ctot[rows_m].astype(jnp.float32), 0.0)
-        px, py, pz = xs[rows_m], ys[rows_m], zs[rows_m]
+    rows_m = jnp.minimum(compact_indices(dense_start, m), jnp.int32(c - 1))
+    ccount = jnp.where(cell_alive, ctot[rows_m].astype(jnp.float32), 0.0)
+    px, py, pz = xs[rows_m], ys[rows_m], zs[rows_m]
     # cell centers relative to mn, recomputed from a member coordinate
     # with the SAME f32 arithmetic as the key assignment above (the
     # start row's point is in the cell by definition; identical values
@@ -412,28 +296,25 @@ def exact_extract_graph(
     )
     centers = jnp.where(cell_alive[:, None], (cij + 0.5) * cell, big)
 
+    # _cut: early exits that return a stage's intermediates (chip_smoke.py
+    # checks the dense-cell table at 4 and the labelled rows at 6)
     if _cut == 4:
         return dict(centers=centers, ccount=ccount, cell_alive=cell_alive)
 
     # ---- cell-graph clustering: one pairwise pop pass, then the
     # min-label flood on the compacted CORE subgraph (see
-    # _core_flood_cluster — the full-table converge kernel cost 27 ms
-    # at the bench tile's 57k dense cells, almost all sparse vegetation)
+    # _core_flood_cluster: almost every dense cell of a corridor tile is
+    # sparse vegetation, so flooding the full table would repeat its
+    # pairwise pass on every label walk)
     eps2 = eps * eps
     cell_labels, core_overflow = _core_flood_cluster(
-        centers, ccount, cell_alive, eps2, cp.min_points, on_tpu,
-        core_cap=core_cap, _cut=_cut,
+        centers, ccount, cell_alive, eps2, cp.min_points, core_cap=core_cap,
     )
-    if _cut in (41, 42):
-        return dict(v=cell_labels, o=core_overflow)
     cell_labels = compact_labels(cell_labels, jnp.int32(m))
-
-    if _cut == 5:
-        return dict(cell_labels=cell_labels)
 
     # ---- per-row labels: deliver each packed cell's label to its start
     # row (m-sized scatter, dead slots dropped) and forward-fill across
-    # the cell run — the [C]-gather alternative measured ~3x slower
+    # the cell run
     lab_at_start = jnp.full(c, -1, jnp.int32).at[
         jnp.where(cell_alive, rows_m, jnp.int32(c))
     ].set(jnp.where(cell_alive, cell_labels, -1), mode="drop")
@@ -441,7 +322,7 @@ def exact_extract_graph(
     labels_s = jnp.where(valid_s & (lab_row >= 0), lab_row, -1)
 
     if _cut == 6:
-        return dict(labels_s=labels_s)
+        return dict(labels_s=labels_s, xs=xs, ys=ys, zs=zs)
 
     # ---- sort-free OBB over the raw coordinates + acceptance filters.
     # Halo ghost rows (original index >= local_rows) informed the
@@ -450,24 +331,10 @@ def exact_extract_graph(
     labels_acc = labels_s
     if local_rows is not None:
         labels_acc = jnp.where(rows_s < jnp.int32(local_rows), labels_s, -1)
-    if on_tpu:
-        from pointcloudhookup_tpu.ops.pallas.obb_accum import (
-            obb_accumulate_xyz,
-        )
-
-        acc = obb_accumulate_xyz(
-            xs, ys, zs, labels_acc, max_clusters=params.max_clusters,
-            num_angles=params.obb_angles,
-        )
-    else:
-        from pointcloudhookup_tpu.ops.pallas.obb_accum import (
-            obb_accumulate_xyz_reference,
-        )
-
-        acc = obb_accumulate_xyz_reference(
-            xs, ys, zs, labels_acc, max_clusters=params.max_clusters,
-            num_angles=params.obb_angles,
-        )
+    acc = obb_accumulate_xyz(
+        xs, ys, zs, labels_acc, max_clusters=params.max_clusters,
+        num_angles=params.obb_angles,
+    )
     from pointcloudhookup_tpu.ops.obb import _obb_from_accum
 
     stats = _obb_from_accum(acc, params.max_clusters, params.obb_angles)

@@ -8,16 +8,15 @@ cell runs contiguous:
   raw points --Morton sort--> voxel runs --reverse segscan--> voxel
   centroids at run starts --global z percentile--> ground keep -->
   cell runs (prefix boundaries) --reverse segscan--> dense-cell table
-  --pallas graph passes--> cell labels --> per-voxel labels -->
+  --tiled pairwise passes--> cell labels --> per-voxel labels -->
   cluster_obb_stats (which label-sorts internally) --> towers
 
 With voxel = 0.1 m and cell_shift = 5, cells are 3.2 m: the same-cell
 diagonal (5.5 m) stays below the reference eps = 8 m, so the cell-graph
 clustering semantics match ops/cluster_grid.py.
 
-Everything is one device program except the OBB/filters (reused ops);
-no scatters, two sorts total (keys+payloads; z for the percentile),
-one m-table gather.
+Everything is one device program except the OBB/filters (reused ops):
+one Morton sort, a strided-sample percentile, one m-table gather.
 """
 
 from __future__ import annotations
@@ -30,7 +29,9 @@ from jax import lax
 
 from pointcloudhookup_tpu.config import ExtractParams
 from pointcloudhookup_tpu.ops.cluster import compact_labels
+from pointcloudhookup_tpu.ops.compact import compact_indices, compact_rows
 from pointcloudhookup_tpu.ops.morton import SENTINEL_HI, morton_encode
+from pointcloudhookup_tpu.ops.neighbor import cluster_cells
 from pointcloudhookup_tpu.ops.percentile import masked_percentile
 from pointcloudhookup_tpu.ops.segments import segmented_scan
 
@@ -104,21 +105,7 @@ def cell_sort_plan(span_xyz, eps: float = 8.0, voxel_size: float = 0.1,
 
 def _dup_window_flags(key, w, depth: int, n: int):
     """bool[N] first-occurrence flags: row i is first iff no j in
-    [i-depth, i) has equal (key, w).  Pallas kernel on TPU; a rolled
-    compare chain elsewhere (same math, CPU-test friendly)."""
-    if jax.default_backend() == "tpu":
-        from pointcloudhookup_tpu.ops.pallas.dupwin import (
-            _BLOCK as _DBLOCK,
-            first_occurrence_flags,
-        )
-
-        pad = (-n) % _DBLOCK
-        if pad:
-            key = jnp.concatenate(
-                [key, jnp.full(pad, 0xFFFFFFFF, key.dtype)]
-            )
-            w = jnp.concatenate([w, jnp.full(pad, 0x7FFF, w.dtype)])
-        return first_occurrence_flags(key, w, depth=depth)[:n].astype(bool)
+    [i-depth, i) has equal (key, w) -- a rolled compare chain."""
     w32 = w.astype(jnp.int32)
     pos = jnp.arange(n, dtype=jnp.int32)
     dup = jnp.zeros(n, bool)
@@ -131,13 +118,42 @@ def _dup_window_flags(key, w, depth: int, n: int):
     return jnp.logical_not(dup)
 
 
+def window_sort(k1, w, window: int = 256):
+    """Restore (k1, w) order within `window`-row windows at offsets 0
+    and window/2 of a k1-sorted array (batched lax.sort).  Every k1-run
+    of length <= window/2 + 1 lies wholly inside a window of one of the
+    two passes, and a later pass never un-sorts a run an earlier one
+    ordered, so such runs end exactly (k1, w)-sorted.  Returns (k1, w)."""
+    n = k1.shape[0]
+    pad = (-n) % window
+    if pad:
+        k1 = jnp.concatenate([k1, jnp.full(pad, 0xFFFFFFFF, k1.dtype)])
+        w = jnp.concatenate([w, jnp.full(pad, 0x7FFF, w.dtype)])
+
+    def _winsort(a, b):
+        a2, b2 = lax.sort(
+            (a.reshape(-1, window), b.reshape(-1, window)),
+            dimension=1,
+            num_keys=2,
+        )
+        return a2.reshape(-1), b2.reshape(-1)
+
+    k1, w = _winsort(k1, w)
+    half = window // 2
+    if k1.shape[0] > window:
+        mid_k, mid_w = _winsort(k1[half:-half], w[half:-half])
+        k1 = lax.dynamic_update_slice(k1, mid_k, (half,))
+        w = lax.dynamic_update_slice(w, mid_w, (half,))
+    return k1[:n], w[:n]
+
+
 @functools.partial(
     jax.jit,
     static_argnames=(
         "params", "max_cells", "min_cell_points", "cell_shift",
         "geometric_voxels", "emit", "return_cells_overflow",
         "sort_mode", "hier_window", "cell_plan", "precut_div",
-        "precut_margin", "core_flood_cells", "core_cap", "_cut",
+        "precut_margin", "core_flood_cells", "core_cap", "axis_name",
     ),
 )
 def fused_downsample_ground_cluster(
@@ -160,7 +176,7 @@ def fused_downsample_ground_cluster(
     precut_margin: float = 0.25,
     core_flood_cells: int = 16384,
     core_cap: int = 16384,
-    _cut: int = 0,
+    axis_name: str | None = None,
 ):
     """One-pass voxel downsample + global ground filter + cell-graph
     clustering.
@@ -183,17 +199,18 @@ def fused_downsample_ground_cluster(
     core_cap: core-cell flood-table capacity for the core-flood branch
     (m >= core_flood_cells); on overflow the incomplete flood is
     reported through cells_overflow and callers escalate or fall back.
+
+    axis_name (inside shard_map): pmin the grid anchor across shards.
     """
     if emit not in ("xyz", "codes"):
         raise ValueError(f"emit must be 'xyz' or 'codes', got {emit!r}")
     if emit == "codes" and not geometric_voxels:
         raise ValueError("emit='codes' requires geometric_voxels=True")
-    if sort_mode not in ("full", "hier", "cell", "merge"):
+    if sort_mode not in ("full", "hier", "cell"):
         raise ValueError(
-            f"sort_mode must be 'full', 'hier', 'cell' or 'merge',"
-            f" got {sort_mode!r}"
+            f"sort_mode must be 'full', 'hier' or 'cell', got {sort_mode!r}"
         )
-    if sort_mode in ("hier", "cell", "merge") and not geometric_voxels:
+    if sort_mode in ("hier", "cell") and not geometric_voxels:
         raise ValueError(f"sort_mode={sort_mode!r} requires geometric_voxels=True")
     n = xyz.shape[0]
     m = max_cells
@@ -217,31 +234,32 @@ def fused_downsample_ground_cluster(
     # ---- Morton keys + ONE sort.  Coordinates ride as payloads only
     # when true centroids are needed; geometric mode sorts 3 operands.
     mn = jnp.min(jnp.where(mask[:, None], xyz, big), axis=0)
-    # snap the grid origin to the GLOBAL voxel lattice (multiples of
-    # voxel_size in the tile frame): quantization boundaries then agree
-    # across shards/tilings of the same corridor, so a boundary-split
-    # tower's voxel centers are bit-identical between a sharded run and
-    # a single-device run (the multi-device exact merge needs this —
-    # with per-shard free origins the lattices disagree by a sub-voxel
-    # offset and merged extremes drift by up to voxel_size/2)
+    if axis_name is not None:
+        # one anchor for every shard (the global min corner, as a
+        # single-device run over the union computes it): voxel AND cell
+        # lattices then agree bit for bit across shards, so a
+        # boundary-split tower clusters and boxes exactly as it would on
+        # one device
+        mn = lax.pmin(mn, axis_name)
+    # snap the grid origin to the voxel lattice (multiples of voxel_size
+    # in the tile frame), so tilings of one corridor share voxel
+    # boundaries
     mn = jnp.floor(mn / voxel_size) * voxel_size
     v = jnp.floor((xyz - mn) / voxel_size).astype(jnp.int32)
     hi, lo = morton_encode(v[:, 0], v[:, 1], v[:, 2])
     hi = jnp.where(mask, hi, SENTINEL_HI)
 
-    # ---- ground pre-cut + stream compaction (fast mode): the 2-key
-    # Morton sort is the dominant stage (10.6 ms at 4M on v5e) yet
-    # ~75-80% of a corridor tile is below the ground cut and only ever
-    # feeds the percentile.  Estimate the base from a strided RAW-z
-    # sample BEFORE the sort (the post-sort fast path samples voxel
-    # rows instead — the delta is bounded by voxel-occupancy skew and
-    # vanishes at <~1 pt/voxel after 0.1 m voxelization), drop
-    # everything below base + offset - margin, and compact the
-    # survivors with the butterfly-concentrator kernel
-    # (ops/pallas/compactrows.py) so the sort and every downstream [N]
-    # pass run at N/precut_div.  The final keep test below re-tests
-    # voxel-center z against the SAME base, so the margin only needs to
-    # cover the raw-z vs voxel-center-z discrepancy (voxel/2).
+    # ---- ground pre-cut + stream compaction (fast mode): ~75-80% of a
+    # corridor tile is below the ground cut and only ever feeds the
+    # percentile.  Estimate the base from a strided RAW-z sample BEFORE
+    # the sort (the post-sort fast path samples voxel rows instead -- the
+    # delta is bounded by voxel-occupancy skew and vanishes at <~1
+    # pt/voxel after 0.1 m voxelization), drop everything below base +
+    # offset - margin, and compact the survivors (ops/compact.py) so the
+    # sort and every downstream [N] pass run at N/precut_div.  The final
+    # keep test below re-tests voxel-center z against the SAME base, so
+    # the margin only needs to cover the raw-z vs voxel-center-z
+    # discrepancy (voxel/2).
     # Cutting at the RETRY offset instead would be exact under retry
     # too, but ground undulation between the two cuts can blow the
     # capacity (45% vs 15% of the bench tile): the retry branch only
@@ -252,12 +270,10 @@ def fused_downsample_ground_cluster(
     precut_dropped = None
     precut_base = None
     if precut_div and sort_mode == "full" and geometric_voxels \
-            and emit == "codes" and xyz.shape[0] >= 131072 \
-            and xyz.shape[0] % 32768 == 0:
-        # capacity rounds UP to the kernel's 32k chunk: more slack never
-        # changes results (extra rows are sentinel-padded), and rounding
-        # down would squeeze small tiles' headroom below 1/precut_div
-        cap = -(-(xyz.shape[0] // precut_div) // 32768) * 32768
+            and emit == "codes" and xyz.shape[0] >= 131072:
+        # capacity rounds UP to 1024 rows: more slack never changes
+        # results (extra rows are sentinel-padded)
+        cap = -(-(xyz.shape[0] // precut_div) // 1024) * 1024
         if ground_override is not None:
             # multi-shard callers already hold the GLOBAL psum'd base
             # AND the retry decision, so the pre-cut threshold is exact
@@ -280,14 +296,6 @@ def fused_downsample_ground_cluster(
             )
             precut_base = pre_base  # retry logic still applies below
         keep_pre = mask & (xyz[:, 2] > pre_thresh)
-        if jax.default_backend() == "tpu":
-            from pointcloudhookup_tpu.ops.pallas.compactrows import (
-                compact_rows,
-            )
-        else:
-            from pointcloudhookup_tpu.ops.pallas.compactrows import (
-                compact_rows_reference as compact_rows,
-            )
         hi, lo, pre_count = compact_rows(keep_pre, hi, lo, cap)
         precut_dropped = jnp.maximum(
             pre_count - jnp.int32(cap), 0
@@ -301,14 +309,12 @@ def fused_downsample_ground_cluster(
         # starts.  Saves one sort payload AND the [N] count scan.
         v_first = None
         if sort_mode == "cell":
-            # Cheapest of the three: ONE single-key sort (lax.sort cost
-            # on TPU is driven by the NUMBER OF KEYS — 2xu32 keys
-            # ~12.1 ms at 4M vs u32 key + payloads ~9.2-9.4 ms) and NO
-            # order restoration — the only thing within-cell ORDER ever
-            # fed in geometric/emit-codes mode is the adjacent-row voxel
-            # dedup test, and dedup FLAGS don't need order: a windowed
-            # duplicate-suppression pass (ops/pallas/dupwin.py) yields
-            # exact first-occurrence flags for every equal-key run
+            # ONE single-key sort and NO order restoration — the only
+            # thing within-cell ORDER ever fed in geometric/emit-codes
+            # mode is the adjacent-row voxel dedup test, and dedup FLAGS
+            # don't need order: a windowed duplicate-suppression pass
+            # (_dup_window_flags) yields exact first-occurrence flags
+            # for every equal-key run
             # <= depth+1.  Longer runs may count a duplicate voxel
             # twice (reported via hier_runs_over); cell grouping stays
             # exact, and per-cluster min/max/count stats are multiset-
@@ -320,8 +326,8 @@ def fused_downsample_ground_cluster(
             # from the tile span — a flat corridor wastes ~9 z bit
             # positions in the standard Morton layout) plus the top g
             # within-cell bits: equal-key runs shrink ~2^g, so the
-            # dedup window depth drops 64 -> 16 (3.2 ms -> 1.4 ms at
-            # 4M), and at g == 3*cell_shift the key IS the full voxel
+            # dedup window depth drops 64 -> 16, and at
+            # g == 3*cell_shift the key IS the full voxel
             # key and dedup is an exact adjacent compare.  hi/lo ride
             # as near-free payloads, so every downstream stage sees
             # standard codes and nothing else changes.
@@ -377,78 +383,24 @@ def fused_downsample_ground_cluster(
                 )
                 run_key = k1
         elif sort_mode == "hier":
-            # Hierarchical sort: lax.sort cost on TPU is driven by the
-            # NUMBER OF KEYS, not operand bytes (2xu32 keys ~12.1 ms at
-            # 4M vs u32 key + u16 payload ~9.2 ms — payloads are nearly
-            # free).  So: ONE single-key sort by the u32 CELL code
-            # k1 = C >> 3k groups cells exactly, with the 3k within-cell
-            # bits riding as a u16 payload; then two offset window sorts
-            # of length hier_window (cost ~ log^2 W vs log^2 N stages)
-            # restore full (k1, w) order wherever a cell's run length
-            # <= hier_window/2 + 1 (any such interval lies wholly inside
-            # a window of one of the two passes, and a later window sort
-            # can never un-sort a run a previous pass ordered).  Cells
-            # denser than that keep exact cell grouping but may count a
-            # duplicate voxel twice — thresholds are unaffected (such
-            # cells are far above min_cell_points/min_points) and box
-            # centers/extents are duplicate-insensitive; callers check
-            # eligibility with hier_sort_eligible() (codes must fit the
-            # u32 cell key).
+            # Hierarchical sort: ONE single-key sort by the u32 CELL
+            # code k1 = C >> 3k groups cells exactly, with the 3k
+            # within-cell bits riding as a u16 payload; then two offset
+            # window sorts of length hier_window restore full (k1, w)
+            # order wherever a cell's run length <= hier_window/2 + 1
+            # (window_sort).  Cells denser than that keep exact cell
+            # grouping but may count a duplicate voxel twice —
+            # thresholds are unaffected (such cells are far above
+            # min_cell_points/min_points) and box centers/extents are
+            # duplicate-insensitive; callers check eligibility with
+            # hier_sort_eligible() (codes must fit the u32 cell key).
             k1 = (hi.astype(jnp.uint32) << (30 - shift3k)) | (
                 lo.astype(jnp.uint32) >> shift3k
             )
             k1 = jnp.where(mask, k1, jnp.uint32(0xFFFFFFFF))
             w16 = (lo & ((1 << shift3k) - 1)).astype(jnp.uint16)
             k1, w16 = lax.sort((k1, w16), num_keys=1)
-            W = hier_window
-            use_pallas_win = jax.default_backend() == "tpu" and W == 256
-            if use_pallas_win:
-                # VMEM-resident bitonic window sort: XLA's batched
-                # minor-dim sort costs ~4 ms/pass at 4M (per-stage
-                # overhead dominates short rows); the pallas network is
-                # bandwidth-bound at one HBM pass per offset.
-                from pointcloudhookup_tpu.ops.pallas.winsort import (
-                    _BLOCK,
-                    window_sort_w,
-                )
-
-                pad = (-n) % _BLOCK
-                if pad:
-                    k1 = jnp.concatenate(
-                        [k1, jnp.full(pad, 0xFFFFFFFF, jnp.uint32)]
-                    )
-                    w16 = jnp.concatenate(
-                        [w16, jnp.full(pad, 0x7FFF, jnp.uint16)]
-                    )
-                w16 = window_sort_w(k1, w16)  # i32, k1 invariant
-                if pad:
-                    k1, w16 = k1[:n], w16[:n]
-            else:
-                pad = (-n) % W
-                if pad:
-                    k1 = jnp.concatenate(
-                        [k1, jnp.full(pad, 0xFFFFFFFF, jnp.uint32)]
-                    )
-                    w16 = jnp.concatenate(
-                        [w16, jnp.full(pad, 0x7FFF, jnp.uint16)]
-                    )
-
-                def _winsort(a, b):
-                    a2, b2 = lax.sort(
-                        (a.reshape(-1, W), b.reshape(-1, W)),
-                        dimension=1,
-                        num_keys=2,
-                    )
-                    return a2.reshape(-1), b2.reshape(-1)
-
-                k1, w16 = _winsort(k1, w16)
-                half = W // 2
-                if k1.shape[0] > W:
-                    mid_k, mid_w = _winsort(k1[half:-half], w16[half:-half])
-                    k1 = lax.dynamic_update_slice(k1, mid_k, (half,))
-                    w16 = lax.dynamic_update_slice(w16, mid_w, (half,))
-                if pad:
-                    k1, w16 = k1[:n], w16[:n]
+            k1, w16 = window_sort(k1, w16, hier_window)
             lo = (
                 ((k1 & ((1 << (30 - shift3k)) - 1)) << shift3k)
                 | w16.astype(jnp.uint32)
@@ -458,22 +410,6 @@ def fused_downsample_ground_cluster(
                 SENTINEL_HI,
                 (k1 >> (30 - shift3k)).astype(jnp.int32),
             )
-        elif sort_mode == "merge":
-            # two-level sort: blocked lax.sort + pallas merge-path
-            # rounds — EXACT lax.sort((hi, lo), 2) equivalent
-            # (tests/test_mergesort.py; scripts/check_mergesort_tpu.py
-            # proves equality at 4M on the chip).  Measured SLOWER than
-            # the flat sort on v5e (15.6 vs 10.0 ms at 4M: the bitonic
-            # cleaner is VPU-issue-bound), so not the default.
-            from pointcloudhookup_tpu.ops.pallas.mergesort import (
-                merge_sort_2key,
-                merge_sort_eligible,
-            )
-
-            if jax.default_backend() == "tpu" and merge_sort_eligible(n):
-                hi, lo = merge_sort_2key(hi, lo)
-            else:
-                hi, lo = lax.sort((hi, lo), num_keys=2)
         else:
             hi, lo = lax.sort((hi, lo), num_keys=2)
         sx = sy = sz = None
@@ -483,12 +419,6 @@ def fused_downsample_ground_cluster(
         hi, lo, sx, sy, sz, w = lax.sort(
             (hi, lo, xyz[:, 0], xyz[:, 1], xyz[:, 2], w_in), num_keys=2
         )
-
-    # _cut: cumulative-profiling early exits (benchmarks/profile_post.py)
-    # — prefix timings difference out per-stage cost with the dispatch
-    # floor cancelling; 0 (default) runs the whole pipeline.
-    if _cut == 1:
-        return hi, lo
 
     # ---- voxel runs -> centroids/counts at run-start rows.  In cell
     # mode the windowed dedup pass already produced first-occurrence
@@ -544,8 +474,7 @@ def fused_downsample_ground_cluster(
     elif geometric_voxels:
         # strided sample: Morton-sorted rows make this a spatially
         # stratified ~16k sample at any n; quantile error stays ~cm
-        # against the 3 m ground offset (a /16 sample sort cost 2.6 ms —
-        # more than every segmented scan combined).  The stride scales
+        # against the 3 m ground offset.  The stride scales
         # with the row count so small tiles keep a dense sample
         # (>=n/16 rows) instead of a fixed /256 decimation.
         stride = max(n >> 14, 16)
@@ -570,9 +499,6 @@ def fused_downsample_ground_cluster(
                 n_keep < gp.min_points_after, jnp.float32(1.0), 0.0
             )
 
-    if _cut == 2:
-        return keep, base
-
     # ---- cell runs (Morton prefix boundaries), stats over KEPT voxels
     if shift3k >= 30:
         c_hi = hi >> (shift3k - 30)
@@ -592,64 +518,8 @@ def fused_downsample_ground_cluster(
     dense_start = c_start & (ctot >= jnp.int32(min_cell_points))
 
     # ---- pack the dense-cell table: rows_m[j] = row of the j-th dense
-    # start.  On TPU a one-pass SMEM-emission kernel
-    # (ops/pallas/compactidx.py) replaces the global cumsum +
-    # m-way binary search, which cost ~2 ms at 4M/m=4096 in gather
-    # rounds.  (A two-level stride-512 search was also tried and LOST
-    # end-to-end — fori_loop serialization; benchmarks/profile_mtable.)
-    if jax.default_backend() == "tpu" and n % 32768 == 0 and (
-        n <= (2 << 20) or m >= 8192
-    ):
-        if _cut == 3:
-            return dense_start, ctot
-        # butterfly-concentrator compaction of the start-row positions
-        # (ops/pallas/compactrows.py with the row index as the routed
-        # value).  compactidx's scalar SMEM emission costs ~600 cycles
-        # per dense cell (vector->scalar sync per bit: 3 ms at 1M rows
-        # / 3.5k cells); the bulk-DMA route is ~4x cheaper — but its
-        # rank+butterfly stages scale with n (dense starts are spread,
-        # so no block is homogeneous), so at raw-4M row counts the
-        # scalar emission wins again (bench A/B: 443.7 vs 423.2 at the
-        # 1M post-precut size; 254.6 vs 231.5 at raw 4M) — UNLESS the
-        # cell table is big: emission cost scales with the dense-cell
-        # count (9 ms at 16M rows / 25k cells vs ~3 ms for the
-        # butterfly), so large-m configs always take this branch.
-        from pointcloudhookup_tpu.ops.pallas.compactrows import (
-            _CHUNK as _CRCHUNK,
-            compact_rows,
-        )
-
-        mcap = max(_CRCHUNK, -(-m // _CRCHUNK) * _CRCHUNK)
-        pos = jnp.arange(n, dtype=jnp.int32)
-        rows_c, _, _cnt = compact_rows(dense_start, pos, pos, mcap)
-        # dead slots carry the 0x7FFFFFFF sentinel; clip to n-1 to match
-        # the searchsorted convention the packed decode relies on
-        rows_m = jnp.minimum(rows_c[:m], jnp.int32(n - 1))
-    elif jax.default_backend() == "tpu" and n % 32768 == 0:
-        if _cut == 3:
-            return dense_start, ctot
-        from pointcloudhookup_tpu.ops.pallas.compactidx import (
-            compact_indices,
-        )
-
-        rows_m = compact_indices(dense_start, m)
-    else:
-        first_row = jnp.zeros(n, bool).at[0].set(True)
-        pidx_row = (
-            segmented_scan(jnp.add, dense_start.astype(jnp.int32), first_row)
-            - 1
-        )
-
-        if _cut == 3:
-            return pidx_row, ctot
-
-        rows_m = jnp.clip(
-            jnp.searchsorted(
-                pidx_row, jnp.arange(m, dtype=jnp.int32), side="left"
-            ),
-            0,
-            n - 1,
-        ).astype(jnp.int32)
+    # start
+    rows_m = compact_indices(dense_start, m)
     ccount = ctot[rows_m].astype(jnp.float32)
     from pointcloudhookup_tpu.ops.morton import morton_decode, shift_code
 
@@ -668,55 +538,32 @@ def fused_downsample_ground_cluster(
     ccount = jnp.where(cell_alive, ccount, 0.0)
     centers = jnp.where(cell_alive[:, None], ccent, big)
 
-    if _cut == 4:
-        return centers, ccount, cell_alive
-
     # ---- cell-graph clustering
     eps2 = eps * eps
-    iota_m = jnp.arange(m, dtype=jnp.int32)
-    use_pallas = jax.default_backend() == "tpu"
     core_flood_over = None
     if m >= core_flood_cells:
-        # big tables (the 16M/32k-cell envelope): the full-table
-        # converge kernel's label walks pay O(pairs) PER ROUND over a
-        # mostly-sparse table; the core-flood restructure pays the
-        # pairwise pop once and floods only the compacted core cells
-        # (ops/frontend_exact.py::_core_flood_cluster).  Small tables
-        # stay on the one-invocation converge kernel (lower fixed cost).
+        # big tables (the 16M/32k-cell envelope): a full-table flood's
+        # label walks pay O(pairs) PER ROUND over a mostly-sparse table;
+        # the core-flood restructure pays the pairwise pop once and
+        # floods only the compacted core cells
+        # (ops/frontend_exact.py::_core_flood_cluster)
         from pointcloudhookup_tpu.ops.frontend_exact import (
             _core_flood_cluster,
         )
 
         cell_labels, core_flood_over = _core_flood_cluster(
-            centers, ccount, cell_alive, eps2, cp.min_points, use_pallas,
+            centers, ccount, cell_alive, eps2, cp.min_points,
             core_cap=core_cap,
         )
-    elif use_pallas:
-        # whole clustering loop — population pass, Jacobi min-label
-        # rounds with early exit, border adoption — in ONE kernel
-        # invocation with every m-table VMEM-resident
-        from pointcloudhookup_tpu.ops.pallas.cluster_converge import cluster_cells
-
-        cell_labels, _pop = cluster_cells(
-            centers, ccount, cell_alive, iota_m, eps2, cp.min_points
-        )
     else:
-        from pointcloudhookup_tpu.ops.pallas.cluster_converge import (
-            cluster_cells_reference,
-        )
-
-        cell_labels, _pop = cluster_cells_reference(
-            centers, ccount, cell_alive, iota_m, eps2, cp.min_points
+        cell_labels, _pop = cluster_cells(
+            centers, ccount, cell_alive, eps2, cp.min_points
         )
     cell_labels = compact_labels(cell_labels, jnp.int32(m))
 
-    if _cut == 5:
-        return cell_labels, keep
-
     # ---- per-voxel labels: deliver each packed cell's label to its
     # start row (m-sized scatter — tiny) and forward-fill across the
-    # cell run (one segmented max scan).  An [N]-gather from the m-table
-    # costs ~3x this despite the monotone indices.
+    # cell run (one segmented max scan).
     lab_at_start = jnp.full(n, -1, jnp.int32).at[rows_m].set(
         jnp.where(cell_alive, cell_labels, -1), mode="drop"
     )
@@ -787,7 +634,7 @@ def fused_extract_step(
     geometric_voxels: bool = False,
     per_cluster_cap: int = 16384,
     points_cap: int | None = None,
-    obb: str = "auto",
+    obb: str = "sort",
     sort_mode: str = "full",
     hier_window: int = 256,
     cell_plan=None,
@@ -798,9 +645,9 @@ def fused_extract_step(
     In geometric mode the OBB consumes Morton CODES (sorting one payload
     column fewer) and decodes voxel centers on its dense [K, P] member
     tensor; positions are identical to the xyz path by construction.
-    obb: "accum" streams a sort-free Pallas accumulation over the Morton
-    rows (exact, no member cap — TPU only), "sort" label-sorts + densifies,
-    "auto" picks accum on TPU.  points_cap compacts labeled rows before
+    obb: "accum" accumulates sort-free over the Morton rows
+    (ops/obb_accum.py: exact, no member cap), "sort" label-sorts +
+    densifies (ops/obb.py).  points_cap compacts labeled rows before
     the sort-path label sort (exact as long as labeled rows fit;
     overflow is reported in stats)."""
     from pointcloudhookup_tpu.models.towers import filter_and_dedup
@@ -810,8 +657,8 @@ def fused_extract_step(
         cluster_obb_stats_codes,
     )
 
-    if obb == "auto":
-        obb = "accum" if jax.default_backend() == "tpu" else "sort"
+    if obb not in ("sort", "accum"):
+        raise ValueError(f"obb must be 'sort' or 'accum', got {obb!r}")
     if geometric_voxels:
         (hi, lo, keep, labels, base, mn, cells_over,
          hier_over) = fused_downsample_ground_cluster(

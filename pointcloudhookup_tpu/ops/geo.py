@@ -4,7 +4,7 @@ The reference delegates to PROJ: ``Transformer.from_crs("EPSG:4547",
 "EPSG:4326")`` (/root/reference/utils/table_match_gim.py:232) and
 ``+proj=vgridshift +grids=egm08_25.gtx`` for ellipsoid->orthometric
 heights (/root/reference/utils/elevation_converter.py:29-31).  Here both
-are closed-form and array-native so they run batched on TPU:
+are closed-form and array-native so they run batched on device:
 
   * Transverse Mercator via Karney (2011) Krüger series to n^6 — sub-mm
     agreement with PROJ in f64.  Every function takes an ``xp`` module:
@@ -138,7 +138,7 @@ class LocalTaylor2D:
     """Second-order local expansion of a smooth R^2 -> R^2 map.
 
     Raw f32 evaluation of the TM series loses ~10 m at CGCS2000 easting
-    magnitudes (~5e5); the TPU-native fix is to build this expansion
+    magnitudes (~5e5); the fix is to build this expansion
     around a tile reference point in f64 ON HOST (one call), then
     evaluate only origin-relative deltas in f32 ON DEVICE.  Truncation
     error of the quadratic term is < 1e-9 deg over a +-2 km tile; f32
@@ -262,12 +262,12 @@ class GeoidPatch:
     """Gather-free local window of a GeoidGrid.
 
     Device bilinear interpolation over the full grid costs 4 dynamic
-    gathers per point (~7 cycles/element each on TPU: 24 Mcoords/s at
-    1M points), but a corridor tile spans a handful of 0.25-deg cells.
+    gathers per point, but a corridor tile spans a handful of 0.25-deg
+    cells.
     A K x K window extracted ON HOST evaluates the SAME piecewise-
     bilinear surface as hat-basis forms u(fi)^T W q(fj): two [N, K]
-    elementwise basis builds plus one skinny [N,K]x[K,K] matmul — pure
-    VPU/MXU, no gathers (~15x faster at 1M points).
+    elementwise basis builds plus one skinny [N,K]x[K,K] matmul, no
+    gathers.
 
     Exact (to f32 summation) vs GeoidGrid.interp for queries INSIDE the
     window; queries outside clamp to the window edge — callers size the

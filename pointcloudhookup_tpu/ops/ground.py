@@ -79,7 +79,10 @@ def remove_ground_ransac(xyz, mask, key, dist_thresh=0.5, num_hypotheses: int = 
     """Remove the dominant plane's inliers and everything below it
     (keeps points above ground plane + dist_thresh)."""
     normal, d, _ = ransac_plane(xyz, mask, key, dist_thresh, num_hypotheses)
-    signed = xyz @ normal + d
+    # HIGHEST: the GPU may run a default-precision f32 dot in TF32,
+    # whose ~1e-3 relative error at km-scale coordinates exceeds the
+    # decimetre threshold this signed distance is compared against
+    signed = jnp.dot(xyz, normal, precision=jax.lax.Precision.HIGHEST) + d
     return mask & (signed > dist_thresh), (normal, d)
 
 

@@ -4,20 +4,20 @@ The reference computes a minimum-volume OBB per cluster with trimesh
 (qhull convex hull — /root/reference/utils/tower_extraction.py:137-139)
 and derives height = extents[2], width = max(extents[0], extents[1]),
 and a north angle from the OBB x-axis (:164-177).  Convex hulls are
-data-dependent and serial; on TPU we exploit that transmission towers
+data-dependent and serial; on device we exploit that transmission towers
 are gravity-aligned: the minimum-volume box of a tower is (to measurement
 noise) the minimum-AREA rectangle of the XY footprint extruded over the
 z extent.  That rectangle is found for ALL clusters at once by scanning
 a dense grid of candidate orientations.
 
-TPU mapping (scatter-free, and gather-light):
+Device mapping (gather-light):
   * points are sorted by cluster label ONCE, carrying coordinates as
     sort payloads (row gathers are expensive; sort payloads are not);
   * per-cluster counts fall out of searchsorted run bounds for free;
   * cluster members are densified into a [K, P] tensor via K dynamic
     SLICES (each cluster is one contiguous run after the sort), and
     centroids/bounds/orientation scans become dense [K, P(, A)] masked
-    reductions — plain VPU work with a small compile footprint (a
+    reductions — plain elementwise work with a small compile footprint (a
     segmented-scan formulation OOM'd the XLA compile at corridor sizes);
   * the hierarchical angle search runs a 32-angle coarse pass plus a
     17-sample refinement around each cluster's winner.
@@ -88,31 +88,6 @@ def cluster_obb_stats(
     )
 
 
-def _compact_valid_rows(valid, payloads, cap: int, fill):
-    """Stable scatter-free compaction: the first `cap` valid rows move to
-    the front of fixed-size [cap] arrays.
-
-    Forward "dst = cumsum(valid)-1" would be a scatter (serializes on
-    TPU); the INVERSE map is not: source row of output slot j is the
-    first row whose running valid-count reaches j+1 — one [N] cumsum +
-    a [cap]-query binary search + [cap] gathers.  Returns (compacted
-    payload tuple, n_valid, overflow_count); slots beyond n_valid carry
-    `fill` in payload 0 and garbage elsewhere (mask via payload 0).
-    """
-    n = valid.shape[0]
-    csum = jnp.cumsum(valid.astype(jnp.int32))
-    n_valid = csum[-1]
-    src = jnp.searchsorted(
-        csum, jnp.arange(1, cap + 1, dtype=jnp.int32), side="left"
-    )
-    src = jnp.clip(src, 0, n - 1).astype(jnp.int32)
-    slot_ok = jnp.arange(cap, dtype=jnp.int32) < n_valid
-    first = jnp.where(slot_ok, payloads[0][src], fill)
-    rest = tuple(p[src] for p in payloads[1:])
-    overflow = jnp.maximum(n_valid - cap, 0).astype(jnp.float32)
-    return (first, *rest), n_valid, overflow
-
-
 @functools.partial(
     jax.jit,
     static_argnames=("voxel_size", "max_clusters", "num_angles", "angle_tile", "per_cluster_cap", "points_cap"),
@@ -138,7 +113,7 @@ def cluster_obb_stats_codes(
     construction there, so decode-after-densify is exact.
 
     points_cap: when set, labeled rows are first compacted to this
-    fixed capacity (cumsum + binary search + gather — no scatter) so
+    fixed capacity (ops/compact.py) so
     the label sort runs over points_cap rows instead of N.  Labeled
     rows are typically <10% of a corridor tile after the ground cut, so
     a cap of N/4 keeps exactness with a 4x cheaper sort; rows beyond
@@ -151,9 +126,15 @@ def cluster_obb_stats_codes(
     lab = jnp.where(valid, labels, k).astype(jnp.int32)
     cap_over = jnp.float32(0.0)
     if points_cap is not None and points_cap < n:
-        (lab, hi, lo), _, cap_over = _compact_valid_rows(
-            valid, (lab, hi, lo), points_cap, fill=jnp.int32(k)
+        from pointcloudhookup_tpu.ops.compact import compact_rows_multi
+
+        (lab, hi, lo), n_valid = compact_rows_multi(
+            valid, (lab, hi, lo), points_cap
         )
+        # slots past the kept rows hold zeros: give them the skip label
+        kept = jnp.arange(points_cap, dtype=jnp.int32) < n_valid
+        lab = jnp.where(kept, lab, k)
+        cap_over = jnp.maximum(n_valid - points_cap, 0).astype(jnp.float32)
         n = points_cap
     p = min(per_cluster_cap, n)
     lab_s, h_s, l_s = lax.sort((lab, hi, lo), num_keys=1)
@@ -171,8 +152,7 @@ def cluster_obb_stats_codes(
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("voxel_size", "max_clusters", "num_angles", "block", "use_pallas"),
+    jax.jit, static_argnames=("voxel_size", "max_clusters", "num_angles")
 )
 def cluster_obb_stats_accum(
     hi,
@@ -184,20 +164,16 @@ def cluster_obb_stats_accum(
     voxel_size: float = 0.1,
     max_clusters: int = 128,
     num_angles: int = 256,
-    block: int = 1024,
-    use_pallas: bool = True,
 ):
-    """Sort-free OBB stats: one streaming Pallas pass accumulates
-    per-(cluster, angle) projection extremes directly over the
-    Morton-ordered rows (ops/pallas/obb_accum.py), replacing the
-    full-N label sort + [K, P] densify of cluster_obb_stats_codes.
-    Exact (no per_cluster_cap), 'overflow' is always 0.  The flat
-    num_angles grid gives the same pi/2/A resolution as the sort
-    path's coarse+refine search."""
+    """Sort-free OBB stats: per-(cluster, angle) projection extremes
+    accumulated directly over the Morton-ordered rows
+    (ops/obb_accum.py), replacing the label sort + [K, P] densify of
+    cluster_obb_stats_codes.  Exact (no per_cluster_cap), 'overflow' is
+    always 0.  The flat num_angles grid gives the same pi/2/A
+    resolution as the sort path's coarse+refine search."""
     acc = cluster_obb_accumulators(
         hi, lo, labels, mask, mn, voxel_size=voxel_size,
-        max_clusters=max_clusters, num_angles=num_angles, block=block,
-        use_pallas=use_pallas,
+        max_clusters=max_clusters, num_angles=num_angles,
     )
     return _obb_from_accum(acc, max_clusters, num_angles)
 
@@ -212,8 +188,6 @@ def cluster_obb_accumulators(
     voxel_size: float = 0.1,
     max_clusters: int = 128,
     num_angles: int = 256,
-    block: int = 1024,
-    use_pallas: bool = True,
 ):
     """RAW per-cluster OBB accumulators over Morton-coded rows:
     dict(cnt[K], sx, sy, sz, zlo, zhi, ulo[K,A], uhi, vlo, vhi).
@@ -224,19 +198,11 @@ def cluster_obb_accumulators(
     single-device run over the union of members (f32 summation order
     aside) — see parallel/sharded.py.  `obb_stats_from_accumulators`
     is the shared finisher."""
-    from pointcloudhookup_tpu.ops.pallas.obb_accum import (
-        obb_accumulate,
-        obb_accumulate_reference,
-    )
+    from pointcloudhookup_tpu.ops.obb_accum import obb_accumulate
 
     k = max_clusters
     lab = jnp.where((labels >= 0) & (labels < k) & mask, labels, -1)
-    if use_pallas:
-        return obb_accumulate(
-            hi, lo, lab, mn, voxel_size=voxel_size, max_clusters=k,
-            num_angles=num_angles, block=block,
-        )
-    return obb_accumulate_reference(
+    return obb_accumulate(
         hi, lo, lab, mn, voxel_size=voxel_size, max_clusters=k,
         num_angles=num_angles,
     )
@@ -249,26 +215,16 @@ def cluster_obb_accumulators_xyz(
     *,
     max_clusters: int = 128,
     num_angles: int = 256,
-    block: int = 1024,
-    use_pallas: bool = True,
 ):
     """cluster_obb_accumulators over RAW coordinates (modular path: no
     Morton codes).  Same return contract."""
-    from pointcloudhookup_tpu.ops.pallas.obb_accum import (
-        obb_accumulate_xyz,
-        obb_accumulate_xyz_reference,
-    )
+    from pointcloudhookup_tpu.ops.obb_accum import obb_accumulate_xyz
 
     k = max_clusters
     lab = jnp.where((labels >= 0) & (labels < k) & mask, labels, -1)
-    x, y, z = xyz[:, 0], xyz[:, 1], xyz[:, 2]
-    if use_pallas and xyz.shape[0] % block == 0:
-        return obb_accumulate_xyz(
-            x, y, z, lab, max_clusters=k, num_angles=num_angles,
-            block=block,
-        )
-    return obb_accumulate_xyz_reference(
-        x, y, z, lab, max_clusters=k, num_angles=num_angles,
+    return obb_accumulate_xyz(
+        xyz[:, 0], xyz[:, 1], xyz[:, 2], lab, max_clusters=k,
+        num_angles=num_angles,
     )
 
 

@@ -1,8 +1,8 @@
 """Masked percentiles on device.
 
 The reference computes ``np.percentile(z, 25)`` over the whole cloud for
-ground filtering (/root/reference/utils/tower_extraction.py:83).  On TPU
-we provide:
+ground filtering (/root/reference/utils/tower_extraction.py:83).  On
+device we provide:
 
   * `masked_percentile` — exact, sort-based, matches numpy's 'linear'
     interpolation on the valid subset of a padded buffer.
@@ -83,7 +83,7 @@ def masked_percentile_bisect(x, mask, q, axis_name=None):
     Bit-identical to masked_percentile (numpy 'linear' interpolation on
     the valid subset): the two order statistics are found by radix
     bisection on the order-preserving u32 view of f32 — 33 masked [N]
-    count/min passes (~1.5 ms at 4M on v5e) vs ~9 ms for the sort.
+    count/min passes instead of one sort.
     Assumes at least one valid element.
 
     With axis_name (inside shard_map), the percentile is EXACT over the
@@ -124,10 +124,8 @@ def histogram_counts(x, mask, lo, hi, num_bins):
     per-shard building block for the distributed percentile (each shard
     histograms locally, counts are summed with psum).
 
-    Implemented as sort + searchsorted + adjacent difference: a TPU
-    scatter-add over millions of updates serializes per element, while a
-    device sort runs at ~460 Mpts/s and the 4096 edge searches are
-    binary lookups.
+    Implemented as sort + searchsorted + adjacent difference (the 4096
+    edge searches are binary lookups).
     """
     xs = jnp.sort(jnp.where(mask, jnp.clip(x, lo, hi), jnp.inf))
     n = jnp.sum(mask.astype(jnp.int32))

@@ -7,9 +7,9 @@ matching path to batched ICP: align each extracted tower cluster to its
 GIM pylon model, vmapped over a whole corridor's towers at once
 (config 4: 50-tower batches).
 
-TPU design: fixed-capacity padded clouds per tower; nearest neighbors by
-tiled pairwise distance (an [N,3]x[3,M] matmul per tower, batched over
-towers on the MXU); weighted Kabsch via batched 3x3 SVD.  Everything is
+Design: fixed-capacity padded clouds per tower; nearest neighbors by
+tiled pairwise distance (an [N,3]x[3,M] matmul per tower at HIGHEST
+precision, batched over towers); weighted Kabsch via batched 3x3 SVD.  Everything is
 fixed-shape and jit/vmap friendly.
 """
 
@@ -36,11 +36,18 @@ def kabsch(src, dst, weights):
         "ni,nj->ij", s * w[:, None], d, precision=jax.lax.Precision.HIGHEST
     )
     u, _, vt = jnp.linalg.svd(h)
-    det = jnp.linalg.det(vt.T @ u.T)
+    det = jnp.linalg.det(_mm(vt.T, u.T))
     flip = jnp.diag(jnp.array([1.0, 1.0, 1.0]).at[2].set(jnp.sign(det)))
-    r = vt.T @ flip @ u.T
-    t = mu_d - r @ mu_s
+    r = _mm(_mm(vt.T, flip), u.T)
+    t = mu_d - _mm(r, mu_s)
     return r, t
+
+
+def _mm(a, b):
+    """f32 product at full precision: the GPU may run a default one in
+    TF32 (~1e-3 relative), which at km-scale coordinates moves points by
+    metres — far beyond the correspondence distances ICP compares."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _nearest(src, src_mask, dst, dst_mask):
@@ -75,7 +82,7 @@ def icp(
 
     def body(carry, _):
         r, t = carry
-        moved = src @ r.T + t
+        moved = _mm(src, r.T) + t
         idx, d2 = _nearest(moved, src_mask, dst, dst_mask)
         corr = dst[idx]
         w = (src_mask & (d2 <= max_corr_dist**2)).astype(jnp.float32)
@@ -84,7 +91,7 @@ def icp(
 
     init = (jnp.eye(3, dtype=src.dtype), jnp.zeros(3, src.dtype))
     (r, t), _ = jax.lax.scan(body, init, None, length=iters)
-    moved = src @ r.T + t
+    moved = _mm(src, r.T) + t
     _, d2 = _nearest(moved, src_mask, dst, dst_mask)
     w = src_mask.astype(jnp.float32)
     inl = (src_mask & (d2 <= max_corr_dist**2)).astype(jnp.float32)

@@ -1,10 +1,8 @@
 """Scatter-free segment reductions over SORTED data.
 
-TPU scatters serialize per update row, so `jax.ops.segment_*` over
-millions of points is pathologically slow; but this pipeline's segments
-(voxel cells, grid cells, cluster members) always come from a device
-sort, which makes every reduction expressible with sort-native
-primitives that vectorize perfectly on the VPU:
+This pipeline's segments (voxel cells, grid cells, cluster members)
+always come from a device sort, which makes every reduction
+expressible with sort-native, elementwise-parallel primitives:
 
   * boundary flags + prefix sums give segment ids;
   * forward/backward monotone scans give each row its segment's start
@@ -64,34 +62,15 @@ def segment_sum_rows(values, is_start, nxt):
     return scan[end]
 
 
-_PALLAS_OP_NAMES = {jnp.add: "add", jnp.maximum: "max", jnp.minimum: "min"}
-
-
 def segmented_scan(op, values, is_start, reverse: bool = False):
     """Segmented inclusive scan of `op` (e.g. jnp.maximum) along axis 0,
     restarting at each is_start row (or segment end if reverse).
 
-    On TPU, 1-D i32/f32 scans with add/max/min run as a ONE-pass Pallas
-    kernel (in-block Hillis-Steele in VMEM + a sequential-grid carry —
-    ops/pallas/segscan.py); everything else uses the XLA Hillis-Steele
-    doubling loop of [N]-shaped shifted combines (log2 N unrolled
-    steps, each a pad/slice + where — no gathers, no odd/even
-    recursion).  The tupled associative_scan both replace emitted a
-    recursive slice/concat graph that took MINUTES of XLA compile at
+    A Hillis-Steele doubling loop of [N]-shaped shifted combines (log2 N
+    unrolled steps, each a pad/slice + where — no gathers, no odd/even
+    recursion).  The tupled associative_scan it replaces emitted a
+    recursive slice/concat graph that took minutes of XLA compile at
     4M rows."""
-    import jax
-
-    name = _PALLAS_OP_NAMES.get(op)
-    if (
-        name is not None
-        and values.ndim == 1
-        and values.dtype in (jnp.int32, jnp.float32)
-        and values.shape[0] % 32768 == 0
-        and jax.default_backend() == "tpu"
-    ):
-        from pointcloudhookup_tpu.ops.pallas.segscan import segmented_scan_pallas
-
-        return segmented_scan_pallas(values, is_start, op=name, reverse=reverse)
     flags = is_start
     if reverse:
         # reset flags for a backward scan are the segment-END rows

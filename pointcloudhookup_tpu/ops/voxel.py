@@ -1,4 +1,4 @@
-"""Voxel-grid downsampling on TPU.
+"""Voxel-grid downsampling on device.
 
 Open3D-semantics (`voxel_down_sample`): voxel index = floor((p - min_bound)
 / voxel_size) with min_bound the cloud minimum; output = per-voxel centroid
@@ -7,7 +7,7 @@ Open3D-semantics (`voxel_down_sample`): voxel index = floor((p - min_bound)
 there; `voxel_downsample_chunked` replicates that parity behavior while
 `voxel_downsample` dedups globally.
 
-TPU design: no hash maps — we sort points by their 3 integer voxel keys
+Design: no hash maps — we sort points by their 3 integer voxel keys
 (`lax.sort` with num_keys=3, fully on-device), detect segment boundaries,
 and compute per-voxel centroids with `segment_sum`.  Everything is fixed
 shape: the output is padded to the input capacity with a validity mask.
@@ -34,7 +34,7 @@ def voxel_downsample(xyz, mask, voxel_size, *, expand: int = 1):
 
     Scatter-free: sort by the 3 integer voxel keys, then per-voxel sums
     are cumulative-sum differences at segment boundaries
-    (ops/segments.py) — TPU scatters would serialize per point.
+    (ops/segments.py).
     `expand` is unused (API symmetry with the chunked variant).
     """
     del expand
@@ -45,8 +45,8 @@ def voxel_downsample(xyz, mask, voxel_size, *, expand: int = 1):
     ijk = jnp.floor((xyz - min_bound) / voxel_size).astype(jnp.int32)
     ijk = jnp.where(mask[:, None], ijk, _SENTINEL)
 
-    # ONE sort carrying the coordinates as payloads — row gathers are far
-    # more expensive than extra sort operands on TPU
+    # ONE sort carrying the coordinates as payloads instead of row
+    # gathers after the sort
     w_in = mask.astype(jnp.float32)
     kx, ky, kz, sx, sy, sz, w = jax.lax.sort(
         (ijk[:, 0], ijk[:, 1], ijk[:, 2], xyz[:, 0], xyz[:, 1], xyz[:, 2], w_in),

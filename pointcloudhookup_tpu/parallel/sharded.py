@@ -1,10 +1,10 @@
-"""Multi-device (mesh/ICI) extraction.
+"""Multi-device (mesh) extraction.
 
 The reference is single-process; its "parallelism" is chunked loops on
-one CPU pool (SURVEY.md section 2.3).  The TPU-native scale-out design
-(BASELINE config 5: 50M+ point corridors on a v5e slice) shards corridor
-points over a 1-D device mesh ("tiles" axis = spatial/data parallelism)
-and keeps every collective on ICI:
+one CPU pool (SURVEY.md section 2.3).  The scale-out design (50M+ point
+corridors over several devices) shards corridor points over a flat 1-D
+device mesh ("tiles" axis = spatial/data parallelism), which suits
+devices joined all to all (NVLink); every collective is small:
 
   * global ground percentile: per-shard histograms + `psum` (one
     all-reduce of a 4096-bin vector), identical result on every shard —
@@ -19,7 +19,7 @@ within `merge_radius` on every axis (the distributed generalization of
 the cross-chunk union-find fix from /root/reference/test/tttt.py:104-174).
 The merge is EXACT: shards gather the RAW per-(cluster, angle) OBB
 accumulators (count/Σx/Σy/Σz/z extremes/rotating-rectangle projection
-extremes — ops/pallas/obb_accum.py), each union-find group SUMS its
+extremes — ops/obb_accum.py), each union-find group SUMS its
 accumulators, and center/extent/angle are re-derived once from the
 combined accumulators — so a tower split across shard boundaries gets
 the identical geometry a single-device run over the union of its
@@ -100,7 +100,7 @@ def _fragment_union(aabb_min, aabb_max, alive, merge_radius):
     return rep
 
 
-_BIG = 3.0e38  # dead-row sentinel, matches ops/pallas/obb_accum.py
+_BIG = 3.0e38  # dead-row sentinel, matches ops/obb_accum.py
 
 
 def _merge_accumulators(acc, merge_radius):
@@ -167,7 +167,7 @@ def _merge_accumulators(acc, merge_radius):
 
 
 def _halo_exchange(xyz, mask, n_dev: int, halo_width: float, halo_cap: int):
-    """Exchange boundary slabs with mesh neighbors over ICI.
+    """Exchange boundary slabs with mesh neighbors.
 
     Shard-local clustering decides core/border status from the points
     it can see; without context, a cell near a tile boundary misses its
@@ -235,8 +235,7 @@ def _halo_exchange(xyz, mask, n_dev: int, halo_width: float, halo_cap: int):
 
 def _halo_capacity(n: int) -> int:
     """Fixed ghost capacity per side: generous for small (test) shards,
-    a bounded fraction with precut-friendly 16384 alignment for big
-    ones (so N + 2H stays a 32768 multiple when N is)."""
+    a bounded fraction (N/32, in 16384-row steps) for big ones."""
     if n >= 131072:
         return max(16384, -(-(n // 32) // 16384) * 16384)
     return max(512, -(-(n // 4) // 256) * 256)
@@ -293,14 +292,14 @@ def make_sharded_extract(
     one finisher pass) — a boundary-split tower's merged geometry
     equals the single-device result to f32 tolerance.  Shards also
     exchange an eps-halo of boundary points with mesh neighbors
-    (ppermute over ICI) so core/border decisions at tile boundaries
+    (ppermute) so core/border decisions at tile boundaries
     see their full neighborhood.
 
     The fused fast path keeps its dense 3.2 m-cell table (NOT the
     modular grid path's 0.1 m-cell table, so ClusterParams.max_cells —
     default 65536, sized for the latter — does not transfer 1:1) at its
-    own default of 8192 entries.  Pass `fast_max_cells` (a multiple of
-    1024) to size it explicitly for dense corridors; when
+    own default of 8192 entries.  Pass `fast_max_cells` to size it
+    explicitly for dense corridors; when
     ClusterParams.max_cells was set BELOW the fused default it is
     honored, and any clamp of a larger request is warned about at build
     time rather than applied silently."""
@@ -321,8 +320,6 @@ def make_sharded_extract(
     if fast:
         cp0 = params.cluster
         if fast_max_cells is not None:
-            if fast_max_cells % 1024:
-                raise ValueError("fast_max_cells must be a multiple of 1024")
             fused_cells = fast_max_cells
         elif cp0.max_cells <= _FUSED_DEFAULT_CELLS:
             fused_cells = cp0.max_cells
@@ -370,7 +367,7 @@ def make_sharded_extract(
             xyz_e, mask_e, params, max_cells=fused_cells,
             min_cell_points=cp.min_cell_points, geometric_voxels=True,
             emit="codes", ground_override=(base, use_retry),
-            return_cells_overflow=True, precut_div=4,
+            return_cells_overflow=True, precut_div=4, axis_name=AXIS,
         )
         # ghost rows stay IN the accumulators here (the fused path's
         # rows are in sorted order, so the local/ghost flag is gone):
@@ -382,7 +379,6 @@ def make_sharded_extract(
         acc = cluster_obb_accumulators(
             hi, lo, labels, keep, mn, max_clusters=params.max_clusters,
             num_angles=params.obb_angles,
-            use_pallas=jax.default_backend() == "tpu",
         )
         merged = _gather_merge_finish(acc, params, merge_radius)
         merged["base_height"] = base
@@ -424,7 +420,6 @@ def make_sharded_extract(
         acc = cluster_obb_accumulators_xyz(
             xyz_e, labels, keep & is_local, max_clusters=params.max_clusters,
             num_angles=params.obb_angles,
-            use_pallas=jax.default_backend() == "tpu",
         )
         merged = _gather_merge_finish(acc, params, merge_radius)
         merged["base_height"] = base
@@ -442,18 +437,11 @@ def make_sharded_extract(
         n = xyz.shape[0]
         xyz_e, mask_e, _is_local, halo_over = _with_halo(xyz, mask)
         ne = xyz_e.shape[0]
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu:
-            cap = -(-max(ne // 4, 32768) // 32768) * 32768
-        else:
-            cap = max(ne // 4, 1024)
+        cap = max(ne // 4, min(ne, 1024))
         cp = params.cluster
         # dense cells are built FROM the compacted survivor table, so a
         # cell table larger than compact_cap can never fill: clamp it
-        # (on CPU shards the XLA reference neighbor pass is [M, M] —
-        # an unclamped 65536 default allocates 17 GB and swap-kills the
-        # virtual-mesh tests; on TPU the clamp just shrinks the tables)
-        mc = min(cp.max_cells, -(-max(cap, 1024) // 1024) * 1024)
+        mc = min(cp.max_cells, cap)
         out = exact_extract_graph(
             xyz_e, mask_e, params,
             cell_bits=exact_cell_bits, compact_cap=cap,

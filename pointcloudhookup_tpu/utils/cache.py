@@ -1,11 +1,12 @@
-"""Persistent-compilation-cache setup, keyed by host fingerprint.
+"""Persistent compilation cache location.
 
-XLA:CPU caches AOT executables specialized to the compiling machine's
-feature set; loading them on a different CPU fails with
-machine-feature-mismatch errors (and re-compiles anyway), so a cache
-directory that travels with the repo across machines is pure poison.
-Key the directory by a fingerprint of the host instead: each machine
-gets its own subtree, stale foreign entries are never even looked at.
+When JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and this
+module sets no other directory.  Otherwise the cache lives at a fixed
+`.jax_cache` under the checkout (found from this package's own path),
+in a subdirectory keyed by a host fingerprint: XLA:CPU caches AOT
+executables specialized to the compiling machine's feature set, and
+loading them on a different CPU fails with machine-feature-mismatch
+errors, so each machine gets its own subtree.
 """
 
 from __future__ import annotations
@@ -13,6 +14,11 @@ from __future__ import annotations
 import hashlib
 import os
 import platform
+
+CHECKOUT_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
 def host_fingerprint() -> str:
@@ -32,18 +38,23 @@ def host_fingerprint() -> str:
     return hashlib.sha256(raw.encode()).hexdigest()[:12]
 
 
-def setup_compilation_cache(base: str = "/root/repo/.jax_cache") -> str:
-    """Point JAX's persistent compilation cache at a host-keyed subdir
-    of `base` (override the base with PCH_JAX_CACHE_DIR; set it empty to
-    disable caching entirely).  Returns the directory used ('' when
-    disabled)."""
+def compilation_cache_dir() -> str:
+    """The directory the persistent compilation cache uses."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    return os.path.join(CHECKOUT_CACHE, host_fingerprint())
+
+
+def setup_compilation_cache() -> str:
+    """Point JAX's persistent compilation cache at compilation_cache_dir()
+    (leaving an environment-given directory to JAX).  Returns the
+    directory."""
     import jax
 
-    base = os.environ.get("PCH_JAX_CACHE_DIR", base)
-    if not base:
-        return ""
-    path = os.path.join(base, host_fingerprint())
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = compilation_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     return path

@@ -5,7 +5,7 @@ The reference embeds a VTK window in Qt: point cloud as point-size-1
 vertex glyphs with a ~500k random display subsample (:114-118), towers
 as line actors built from point-pair edge arrays (:176-227) or box
 dicts (:229-284), and a camera auto-fitted along the scene bounds
-diagonal (:286-322).  A TPU pipeline is headless, so this module
+diagonal (:286-322).  A device pipeline is headless, so this module
 renders the same scene to a PNG instead: a numpy z-buffer point
 splatter + line rasterizer behind the exact same scene inputs
 (points + tower_display_geometries linesets).  No GUI toolkit, no GL.

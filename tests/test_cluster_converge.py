@@ -1,10 +1,10 @@
-"""Whole-loop clustering kernel vs oracle and vs the neighbor-kernel
-pipeline it replaced."""
+"""Cell-graph DBSCAN (ops/neighbor.py::cluster_cells) vs its dense
+oracle, and the oracle vs a literal numpy DBSCAN."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from pointcloudhookup_tpu.ops.pallas.cluster_converge import (
+from pointcloudhookup_tpu.ops.neighbor import (
     cluster_cells,
     cluster_cells_reference,
 )
@@ -90,9 +90,7 @@ def test_kernel_matches_reference_interpret(rng):
     eps2, minpts = 36.0, 40.0
     iota = jnp.arange(m, dtype=jnp.int32)
     lab_r, pop_r = cluster_cells_reference(centers, w, alive, iota, eps2, minpts)
-    lab_k, pop_k = cluster_cells(
-        centers, w, alive, iota, eps2, minpts, interpret=True
-    )
+    lab_k, pop_k = cluster_cells(centers, w, alive, eps2, minpts)
     fin = np.abs(np.asarray(centers)[:, 0]) < 1e37
     np.testing.assert_allclose(
         np.asarray(pop_r)[fin], np.asarray(pop_k)[fin], rtol=1e-5

@@ -1,23 +1,25 @@
-"""ops/pallas/compactidx.py: the SMEM emission kernel must equal the
-XLA cumsum+searchsorted reference (the frontend's m-table pack)."""
+"""compact_indices (ops/compact.py): positions of the first m set flags,
+the frontend's dense-cell table pack, against numpy."""
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pointcloudhookup_tpu.ops.pallas.compactidx import (
-    _BLOCK,
-    compact_indices,
-    compact_indices_reference,
-)
+from pointcloudhookup_tpu.ops.compact import compact_indices
+
+_BLOCK = 32768
+
+
+def _expect(flag, m):
+    idx = np.flatnonzero(flag)[:m]
+    out = np.full(m, len(flag) - 1, np.int32)
+    out[: len(idx)] = idx
+    return out
 
 
 def _check(flag, m):
-    got = np.asarray(
-        compact_indices(jnp.asarray(flag), m, interpret=True)
-    )
-    exp = np.asarray(compact_indices_reference(jnp.asarray(flag), m))
-    np.testing.assert_array_equal(got, exp)
+    got = np.asarray(compact_indices(jnp.asarray(flag), m))
+    np.testing.assert_array_equal(got, _expect(flag, m))
 
 
 @pytest.mark.parametrize("density", [0.0, 0.001, 0.05, 0.9])
@@ -29,7 +31,7 @@ def test_random_densities(density):
 
 def test_block_boundaries():
     flag = np.zeros(2 * _BLOCK, bool)
-    # around the block seam, the block ends, and the array ends
+    # around a 32k seam, the block ends, and the array ends
     for i in (0, 1, _BLOCK - 1, _BLOCK, _BLOCK + 1, 2 * _BLOCK - 1):
         flag[i] = True
     _check(flag, 16)
@@ -42,18 +44,10 @@ def test_count_exceeds_m():
 
 
 def test_lane_patterns():
-    # every lane of one vreg row set; single full row; alternating
+    # a contiguous run of 128; every other row
     flag = np.zeros(_BLOCK, bool)
     flag[256:384] = True
     _check(flag, 256)
     flag = np.zeros(_BLOCK, bool)
     flag[::2] = True
     _check(flag, 128)
-
-
-def test_non_multiple_falls_back():
-    rng = np.random.default_rng(3)
-    flag = rng.random(1000) < 0.1
-    got = np.asarray(compact_indices(jnp.asarray(flag), 32))
-    exp = np.asarray(compact_indices_reference(jnp.asarray(flag), 32))
-    np.testing.assert_array_equal(got, exp)

@@ -1,9 +1,7 @@
-"""compact_rows: butterfly-concentrator stream compaction (interpret mode).
-
-Covers the conflict-freeness claim the kernel rests on (monotone rank
-routing through an LSB-first XOR-butterfly) across random densities,
-plus carry/staging sequencing, sentinel padding, and capacity overflow.
-"""
+"""compact_rows / compact_rows_multi: order-preserving stream compaction
+into fixed-capacity buffers (ops/compact.py) against numpy boolean
+indexing, across densities, bursty runs, sentinel padding and capacity
+overflow."""
 
 import numpy as np
 import pytest
@@ -13,26 +11,22 @@ pytestmark = pytest.mark.heavy  # compile-heavy on a cold 1-core host; quick tie
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from pointcloudhookup_tpu.ops.morton import SENTINEL_HI  # noqa: E402
-from pointcloudhookup_tpu.ops.pallas.compactrows import (  # noqa: E402
-    _BLOCK,
-    _CHUNK,
+from pointcloudhookup_tpu.ops.compact import (  # noqa: E402
     compact_rows,
-    compact_rows_reference,
+    compact_rows_multi,
 )
+from pointcloudhookup_tpu.ops.morton import SENTINEL_HI  # noqa: E402
+
+_BLOCK = 32768
+_CHUNK = 32768
 
 
 def _run(keep, hi, lo, cap):
-    return compact_rows(
-        jnp.asarray(keep), jnp.asarray(hi), jnp.asarray(lo), cap,
-        interpret=True,
-    )
+    return compact_rows(jnp.asarray(keep), jnp.asarray(hi), jnp.asarray(lo), cap)
 
 
 @pytest.mark.parametrize("p", [0.02, 0.22, 0.93])
 def test_random_density(p):
-    # one 32k block keeps interpret-mode runtime sane; cross-block carry
-    # and multi-chunk emission are covered by test_bursty_runs
     rng = np.random.default_rng(int(p * 100))
     n = _BLOCK
     keep = rng.random(n) < p
@@ -62,8 +56,7 @@ def test_none_and_all():
 
 
 def test_bursty_runs():
-    # long all-kept runs followed by long all-dropped runs exercise the
-    # carry wrap and multi-chunk emission paths
+    # long all-kept runs followed by long all-dropped runs
     n = _BLOCK * 4
     keep = np.zeros(n, bool)
     keep[5000:21000] = True
@@ -92,51 +85,35 @@ def test_capacity_overflow_reports_true_count():
     np.testing.assert_array_equal(np.asarray(hi_c[:cap]), hi[keep][:cap])
 
 
-def test_reference_agrees():
-    rng = np.random.default_rng(11)
-    n = _BLOCK
-    keep = rng.random(n) < 0.3
-    hi = rng.integers(0, 2**30, n, dtype=np.int32)
-    lo = rng.integers(0, 2**30, n, dtype=np.int32)
-    cap = _CHUNK * 2
-    a = _run(keep, hi, lo, cap)
-    b = compact_rows_reference(
-        jnp.asarray(keep), jnp.asarray(hi), jnp.asarray(lo), cap
-    )
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
-    assert int(a[2]) == int(b[2])
-
-
 def test_validation_errors():
-    n = _BLOCK
+    n = 1000
     z = jnp.zeros(n, jnp.int32)
-    with pytest.raises(ValueError, match="multiple"):
-        compact_rows(jnp.zeros(n + 1, bool), z, z, _CHUNK, interpret=True)
-    with pytest.raises(ValueError, match="multiple"):
-        compact_rows(jnp.zeros(n, bool), z, z, _CHUNK + 1, interpret=True)
+    with pytest.raises(ValueError, match="does not match"):
+        compact_rows(jnp.zeros(n + 1, bool), z, z, 64)
+    with pytest.raises(ValueError, match="positive"):
+        compact_rows(jnp.zeros(n, bool), z, z, 0)
 
 
 def test_multi_channel_four():
-    # the exact-semantics front-end routes (x, y, z, idx) — four
-    # channels sharing one routing computation
-    from pointcloudhookup_tpu.ops.pallas.compactrows import (
-        compact_rows_multi,
-        compact_rows_multi_reference,
-    )
-
+    # the exact-semantics front-end routes (x, y, z, row index) — four
+    # channels of mixed dtype, capacity not a power of two
     rng = np.random.default_rng(7)
-    n = _BLOCK
+    n = 50_000
     keep = rng.random(n) < 0.21
-    chans = tuple(
-        jnp.asarray(rng.integers(0, 2**30, n, dtype=np.int32))
-        for _ in range(4)
+    chans = (
+        rng.normal(0, 500, n).astype(np.float32),
+        rng.normal(0, 500, n).astype(np.float32),
+        rng.normal(0, 20, n).astype(np.float32),
+        np.arange(n, dtype=np.int32),
     )
-    cap = _CHUNK
+    cap = 12_345
     comp, cnt = compact_rows_multi(
-        jnp.asarray(keep), chans, cap, interpret=True
+        jnp.asarray(keep), tuple(jnp.asarray(c) for c in chans), cap
     )
-    ref, rcnt = compact_rows_multi_reference(jnp.asarray(keep), chans, cap)
-    assert int(cnt) == int(rcnt) == int(keep.sum())
-    for a, b in zip(comp, ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert int(cnt) == int(keep.sum())
+    k = min(int(cnt), cap)
+    for got, c in zip(comp, chans):
+        got = np.asarray(got)
+        assert got.dtype == c.dtype
+        np.testing.assert_array_equal(got[:k], c[keep][:k])
+        assert (got[k:] == 0).all()

@@ -144,3 +144,33 @@ def test_exact_fast_core_cap_resizes_from_spill_count():
     _assert_partition_equal(ref["labels"], got["labels"])
     np.testing.assert_array_equal(got["ground_keep"], ref["ground_keep"])
     assert int(got["accepted"].sum()) == len(centers)
+
+
+def test_extract_from_points_capacity_not_multiple_of_32768(monkeypatch):
+    """The exact route takes any capacity: padded to 30,123 rows, the
+    tile goes through the exact frontend (the modular fallback is
+    disabled here) and matches the modular step on the same buffer."""
+    from pointcloudhookup_tpu.models import pipeline
+
+    xyz, mask, centers = _workload()
+    pts = xyz[mask].astype(np.float64)
+    cap = 30_123
+    assert cap % 32768 and cap % 1024
+    assert _exact_fast_plan(pts, PARAMS, cap) is not None
+    modular = pipeline._extract_stats_modular
+
+    def refuse(*a, **k):
+        raise AssertionError("fell back to the modular path")
+
+    monkeypatch.setattr(pipeline, "_extract_stats_modular", refuse)
+    towers, got, origin = pipeline.extract_from_points(pts, PARAMS, capacity=cap)
+    assert len(towers) == len(centers)
+    assert got["labels"].shape == (cap,)
+    buf = np.zeros((cap, 3), np.float32)
+    buf[: len(pts)] = (pts - origin).astype(np.float32)
+    m = np.arange(cap) < len(pts)
+    ref = modular(buf, m, PARAMS)
+    _assert_partition_equal(ref["labels"], got["labels"])
+    np.testing.assert_array_equal(
+        np.sort(got["count"][got["accepted"]]), np.sort(ref["count"][ref["accepted"]])
+    )

@@ -64,7 +64,7 @@ def test_tm_f32_device_sanity():
 
 
 def test_local_taylor_inverse_submm_on_device():
-    # The TPU-native precision path: f64 Taylor build on host, f32 delta
+    # The device precision path: f64 Taylor build on host, f32 delta
     # evaluation on device -> sub-mm agreement with the f64 inverse over
     # a +-2 km tile.
     from pointcloudhookup_tpu.ops.geo import local_cgcs2000_to_wgs84

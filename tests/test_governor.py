@@ -12,21 +12,38 @@ def test_host_available_bytes_positive():
 
 
 def test_device_memory_fallback_by_kind():
+    """An accelerator that reports no memory limit is an error (there is
+    no per-kind table to guess from); the CPU platform budgets host
+    memory."""
+
     class FakeDev:
-        device_kind = "TPU v5 lite0"
+        platform = "gpu"
+        device_kind = "NVIDIA H100 80GB HBM3"
 
         def memory_stats(self):
             return None
 
-    assert governor.device_memory_bytes(FakeDev()) == 16 << 30
+    with pytest.raises(ValueError, match="no memory limit"):
+        governor.device_memory_bytes(FakeDev())
 
     class FakeDev2:
-        device_kind = "TPU v4"
+        platform = "gpu"
+        device_kind = "NVIDIA H100 80GB HBM3"
 
         def memory_stats(self):
             raise RuntimeError("no stats")
 
-    assert governor.device_memory_bytes(FakeDev2()) == 32 << 30
+    with pytest.raises(ValueError, match="no memory limit"):
+        governor.device_memory_bytes(FakeDev2())
+
+    class CpuDev:
+        platform = "cpu"
+        device_kind = "cpu"
+
+        def memory_stats(self):
+            return None
+
+    assert governor.device_memory_bytes(CpuDev()) == governor.host_available_bytes()
 
 
 def test_device_memory_from_stats():
@@ -41,10 +58,11 @@ def test_device_memory_from_stats():
 
 def test_auto_capacity_scales_with_ram(monkeypatch):
     class Dev:
-        device_kind = "TPU v5 lite0"
+        platform = "gpu"
+        device_kind = "NVIDIA H100 80GB HBM3"
 
         def memory_stats(self):
-            return None
+            return {"bytes_limit": 16 << 30}
 
     monkeypatch.setattr(governor, "host_available_bytes", lambda: 4 << 30)
     small = governor.auto_capacity(device=Dev())

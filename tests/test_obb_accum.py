@@ -1,4 +1,5 @@
-"""Sort-free OBB accumulation kernel vs oracles."""
+"""Sort-free OBB accumulators (ops/obb_accum.py and the Triton kernel
+in interpret mode) vs the dense oracles."""
 
 import numpy as np
 import pytest
@@ -6,10 +7,20 @@ import jax.numpy as jnp
 
 from pointcloudhookup_tpu.core import pad_points
 from pointcloudhookup_tpu.ops.morton import morton_encode
-from pointcloudhookup_tpu.ops.pallas.obb_accum import (
+from pointcloudhookup_tpu.ops.obb_accum import (
+    morton_centers,
     obb_accumulate,
     obb_accumulate_reference,
+    obb_accumulate_xyz_sorted,
 )
+from pointcloudhookup_tpu.ops.pallas.obb_accum_triton import (
+    obb_accumulate_xyz_triton,
+)
+
+
+def _triton_interpret(hi, lo, labels, mn, **kw):
+    x, y, z = morton_centers(hi, lo, mn, 0.1)
+    return obb_accumulate_xyz_triton(x, y, z, labels, interpret=True, **kw)
 
 
 def _fixture(rng, n=4096, k=8):
@@ -46,10 +57,7 @@ def test_kernel_matches_reference_interpret(rng):
     ref = obb_accumulate_reference(
         hi, lo, labels, mn, max_clusters=8, num_angles=32
     )
-    ker = obb_accumulate(
-        hi, lo, labels, mn, max_clusters=8, num_angles=32, block=512,
-        interpret=True,
-    )
+    ker = _triton_interpret(hi, lo, labels, mn, max_clusters=8, num_angles=32)
     for key in ref:
         np.testing.assert_allclose(
             np.asarray(ref[key]), np.asarray(ker[key]), rtol=1e-5, atol=1e-4,
@@ -88,7 +96,7 @@ def test_accum_stats_match_sort_path(corridor):
     )
     s_acc = cluster_obb_stats_accum(
         hi, lo, labels, keep, mn, max_clusters=p.max_clusters,
-        num_angles=p.obb_angles, block=512, use_pallas=False,
+        num_angles=p.obb_angles,
     )
     np.testing.assert_array_equal(
         np.asarray(s_sort["alive"]), np.asarray(s_acc["alive"])
@@ -112,16 +120,13 @@ def test_accum_stats_match_sort_path(corridor):
 
 
 def test_accum_kernel_stats_interpret(corridor):
-    """The PALLAS kernel (interpret) behind cluster_obb_stats_accum
-    agrees with its XLA reference on real frontend output."""
+    """The Triton kernel (interpret) and the plain form behind
+    cluster_obb_stats_accum agree with the oracle on real frontend
+    output."""
     import dataclasses
 
     from pointcloudhookup_tpu.config import ExtractParams
     from pointcloudhookup_tpu.ops.frontend_fused import fused_downsample_ground_cluster
-    from pointcloudhookup_tpu.ops.pallas.obb_accum import (
-        obb_accumulate,
-        obb_accumulate_reference,
-    )
 
     pts, centers = corridor
     origin = pts.mean(axis=0)
@@ -136,38 +141,130 @@ def test_accum_kernel_stats_interpret(corridor):
     )
     lab = jnp.where(keep, labels, -1)
     ref = obb_accumulate_reference(hi, lo, lab, mn, max_clusters=32, num_angles=32)
-    ker = obb_accumulate(
-        hi, lo, lab, mn, max_clusters=32, num_angles=32, block=1024,
-        interpret=True,
-    )
-    for key in ref:
-        np.testing.assert_allclose(
-            np.asarray(ref[key]), np.asarray(ker[key]), rtol=1e-5, atol=1e-4,
-            err_msg=key,
-        )
+    for ker in (
+        _triton_interpret(hi, lo, lab, mn, max_clusters=32, num_angles=32),
+        obb_accumulate(hi, lo, lab, mn, max_clusters=32, num_angles=32),
+    ):
+        for key in ref:
+            np.testing.assert_allclose(
+                np.asarray(ref[key]), np.asarray(ker[key]), rtol=1e-5,
+                atol=1e-4, err_msg=key,
+            )
 
 
 def test_obb_accumulate_xyz_matches_reference(rng):
-    from pointcloudhookup_tpu.ops.pallas.obb_accum import (
-        obb_accumulate_xyz,
-        obb_accumulate_xyz_reference,
-    )
+    """The plain form against the dense f32 oracle (extremes) and a
+    float64 oracle (sums: the dense f32 sums carry their own rounding)."""
+    from pointcloudhookup_tpu.ops.obb_accum import obb_accumulate_xyz_reference
 
     n, k, a = 8192, 32, 32
     x = (rng.normal(size=n) * 50).astype(np.float32)
     y = (rng.normal(size=n) * 50).astype(np.float32)
     z = rng.uniform(0, 60, n).astype(np.float32)
     lab = rng.integers(-1, k, n).astype(np.int32)
-    ker = obb_accumulate_xyz(
-        jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(lab),
-        max_clusters=k, num_angles=a, interpret=True,
-    )
-    ref = obb_accumulate_xyz_reference(
-        jnp.asarray(x), jnp.asarray(y), jnp.asarray(z), jnp.asarray(lab),
-        max_clusters=k, num_angles=a,
-    )
-    for key in ref:
+    args = tuple(jnp.asarray(v) for v in (x, y, z, lab))
+    ker = obb_accumulate_xyz_sorted(*args, max_clusters=k, num_angles=a)
+    ref = obb_accumulate_xyz_reference(*args, max_clusters=k, num_angles=a)
+    for key in ("cnt", "zlo", "zhi", "ulo", "uhi", "vlo", "vhi"):
         np.testing.assert_allclose(
             np.asarray(ker[key]), np.asarray(ref[key]), rtol=1e-5,
             atol=1e-3, err_msg=key,
         )
+    _check_f64(ker, _f64_oracle(x, y, z, lab, k, a))
+
+
+def _f64_oracle(x, y, z, lab, k, a):
+    """float64 numpy accumulators (empty clusters at +-BIG)."""
+    ang = np.arange(a) * (np.pi / 2.0 / a)
+    big = 3.0e38
+    out = dict(cnt=np.zeros(k), sx=np.zeros(k), sy=np.zeros(k), sz=np.zeros(k),
+               zlo=np.full(k, big), zhi=np.full(k, -big),
+               ulo=np.full((k, a), big), uhi=np.full((k, a), -big),
+               vlo=np.full((k, a), big), vhi=np.full((k, a), -big))
+    x, y, z = (np.asarray(v, np.float64) for v in (x, y, z))
+    for c in range(k):
+        sel = lab == c
+        if not sel.any():
+            continue
+        u = x[sel, None] * np.cos(ang) + y[sel, None] * np.sin(ang)
+        v = y[sel, None] * np.cos(ang) - x[sel, None] * np.sin(ang)
+        out["cnt"][c] = sel.sum()
+        out["sx"][c], out["sy"][c], out["sz"][c] = x[sel].sum(), y[sel].sum(), z[sel].sum()
+        out["zlo"][c], out["zhi"][c] = z[sel].min(), z[sel].max()
+        out["ulo"][c], out["uhi"][c] = u.min(0), u.max(0)
+        out["vlo"][c], out["vhi"][c] = v.min(0), v.max(0)
+    return out
+
+
+_IMPLS = {
+    "sorted": lambda *a, **kw: obb_accumulate_xyz_sorted(*a, chunk=512, **kw),
+    "triton": lambda *a, **kw: obb_accumulate_xyz_triton(*a, interpret=True, **kw),
+}
+
+
+def _check_f64(got, want):
+    """cnt exact; extremes within 1e-3 m (f32 at km scale, FMA-fused
+    projections); sums within f32 rounding of their magnitude."""
+    np.testing.assert_array_equal(np.asarray(got["cnt"]), want["cnt"])
+    for key in ("zlo", "zhi", "ulo", "uhi", "vlo", "vhi"):
+        np.testing.assert_allclose(np.asarray(got[key], np.float64), want[key],
+                                   rtol=1e-6, atol=1e-3, err_msg=key)
+    for key in ("sx", "sy", "sz"):
+        np.testing.assert_allclose(np.asarray(got[key], np.float64), want[key],
+                                   rtol=1e-6, atol=1e-2, err_msg=key)
+
+
+@pytest.mark.parametrize("impl", sorted(_IMPLS))
+def test_labels_at_or_above_k_are_skipped(rng, impl):
+    n, k, a = 3000, 8, 16
+    x = (rng.normal(size=n) * 40 + 900).astype(np.float32)
+    y = (rng.normal(size=n) * 40 - 1500).astype(np.float32)
+    z = rng.uniform(0, 60, n).astype(np.float32)
+    lab = np.sort(rng.integers(-3, 2 * k, n)).astype(np.int32)
+    got = _IMPLS[impl](*(jnp.asarray(v) for v in (x, y, z, lab)),
+                       max_clusters=k, num_angles=a)
+    _check_f64(got, _f64_oracle(x, y, z, lab, k, a))
+
+
+@pytest.mark.parametrize("impl", sorted(_IMPLS))
+def test_all_noise_rows(rng, impl):
+    n, k, a = 2000, 8, 16
+    x, y, z = (rng.normal(size=n).astype(np.float32) for _ in range(3))
+    lab = np.full(n, -1, np.int32)
+    got = _IMPLS[impl](*(jnp.asarray(v) for v in (x, y, z, lab)),
+                       max_clusters=k, num_angles=a)
+    assert (np.asarray(got["cnt"]) == 0).all()
+    assert (np.asarray(got["ulo"]) == np.float32(3.0e38)).all()
+    assert (np.asarray(got["vhi"]) == np.float32(-3.0e38)).all()
+    assert (np.asarray(got["zlo"]) == np.float32(3.0e38)).all()
+
+
+@pytest.mark.parametrize("impl", sorted(_IMPLS))
+def test_one_cluster_over_every_row_chunk(rng, impl):
+    """One tower-sized cluster whose rows are spread over every row
+    chunk / block, interleaved with noise and a second cluster."""
+    n, k, a = 5000, 4, 32
+    x = (rng.normal(size=n) * 5 + 1800).astype(np.float32)
+    y = (rng.normal(size=n) * 5 + 1800).astype(np.float32)
+    z = rng.uniform(0, 40, n).astype(np.float32)
+    lab = np.where(np.arange(n) % 3 == 0, 2, -1).astype(np.int32)
+    lab[np.arange(n) % 7 == 1] = 0
+    got = _IMPLS[impl](*(jnp.asarray(v) for v in (x, y, z, lab)),
+                       max_clusters=k, num_angles=a)
+    _check_f64(got, _f64_oracle(x, y, z, lab, k, a))
+
+
+@pytest.mark.gpu
+def test_triton_kernel_matches_plain_form_on_gpu(gpu_device, rng):
+    """On the card: the compiled Triton kernel (the GPU product path)
+    against the plain XLA form at a survivor-table width."""
+    from pointcloudhookup_tpu.ops.obb_accum import obb_accumulate_xyz
+
+    n, k, a = 1 << 20, 128, 256
+    x = (rng.normal(size=n) * 800).astype(np.float32)
+    y = (rng.normal(size=n) * 800).astype(np.float32)
+    z = rng.uniform(0, 60, n).astype(np.float32)
+    lab = np.where(rng.random(n) < 0.3, (np.arange(n) // 4096) % (k + 8), -1)
+    args = tuple(jnp.asarray(v) for v in (x, y, z, lab.astype(np.int32)))
+    got = obb_accumulate_xyz(*args, max_clusters=k, num_angles=a)
+    _check_f64(got, _f64_oracle(x, y, z, lab, k, a))

@@ -1,20 +1,19 @@
+"""The tiled neighbour pass (ops/neighbor.py) against its dense
+oracle."""
+
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from pointcloudhookup_tpu.ops.pallas.neighbor import (
+from pointcloudhookup_tpu.ops.neighbor import (
     neighbor_reduce,
     neighbor_reduce_reference,
 )
 
-INTERPRET = jax.default_backend() != "tpu"
-
 
 def _safe_eps2(xyz, target=400.0):
-    """An eps^2 with a wide margin to every pairwise distance so the
-    kernel's difference-form and the oracle's expansion-form f32
-    thresholds agree exactly."""
+    """An eps^2 with a wide margin to every pairwise distance, so no
+    decision rests on the last bit of a fused multiply-add."""
     d2 = ((xyz[:, None, :] - xyz[None, :, :]) ** 2).sum(-1).ravel()
     d2 = np.sort(d2[d2 > 0])
     i = np.searchsorted(d2, target)
@@ -30,14 +29,10 @@ def test_neighbor_reduce_matches_reference(rng, m):
     weights = rng.uniform(0, 3, m).astype(np.float32)
     allowed = rng.uniform(size=m) > 0.3
     eps2 = _safe_eps2(xyz.astype(np.float64))
-    pop, lmin = neighbor_reduce(
-        jnp.asarray(xyz), jnp.asarray(labels), jnp.asarray(weights),
-        jnp.asarray(allowed), eps2, interpret=INTERPRET,
-    )
-    pop_r, lmin_r = neighbor_reduce_reference(
-        jnp.asarray(xyz), jnp.asarray(labels), jnp.asarray(weights),
-        jnp.asarray(allowed), eps2,
-    )
+    args = (jnp.asarray(xyz), jnp.asarray(labels), jnp.asarray(weights),
+            jnp.asarray(allowed), eps2)
+    pop, lmin = neighbor_reduce(*args)
+    pop_r, lmin_r = neighbor_reduce_reference(*args)
     np.testing.assert_allclose(np.asarray(pop), np.asarray(pop_r), rtol=1e-5)
     np.testing.assert_array_equal(np.asarray(lmin), np.asarray(lmin_r))
 
@@ -48,7 +43,6 @@ def test_neighbor_reduce_no_neighbors(rng):
     pop, lmin = neighbor_reduce(
         jnp.asarray(xyz), jnp.asarray(labels),
         jnp.ones(1024, jnp.float32), jnp.zeros(1024, bool), 1.0,
-        interpret=INTERPRET,
     )
     assert (np.asarray(pop) == 0).all()
     assert (np.asarray(lmin) == 1024).all()

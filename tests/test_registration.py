@@ -20,6 +20,8 @@ def test_kabsch_exact_recovery(rng):
     t_true = np.array([1.5, -2.0, 0.7], np.float32)
     dst = src @ r_true.T + t_true
     r, t = kabsch(jnp.asarray(src), jnp.asarray(dst), jnp.ones(200))
+    # f32 products at Precision.HIGHEST: ~1e-6 relative error, so 1e-4
+    # holds on any backend; a TF32 product (~1e-3) would not pass
     np.testing.assert_allclose(np.asarray(r), r_true, atol=1e-4)
     np.testing.assert_allclose(np.asarray(t), t_true, atol=1e-4)
 

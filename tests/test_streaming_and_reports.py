@@ -124,6 +124,28 @@ def test_stream_extract_fast_mode_matches(rng):
         assert np.linalg.norm(cs[:, :2] - cf[:, :2]) < 0.5
 
 
+def test_stream_extract_retries_a_spilled_cell_table(rng):
+    """A tile whose dense cells overflow max_cells re-runs at a higher
+    cell-density floor (the extract_from_points contract) instead of
+    losing the towers in the dropped cells."""
+    from pointcloudhookup_tpu.io.synthetic import synthetic_corridor
+
+    pts, centers = synthetic_corridor(
+        rng, n_ground=3000, n_veg=2500, towers=((-60.0, 0.0), (60.0, 0.0)),
+        pts_per_tower=700, extent=100.0,
+    )
+    params = ExtractParams(
+        ground=GroundParams(min_points_after=64),
+        cluster=ClusterParams(eps=5.0, min_points=30, method="grid",
+                              max_cells=1024),
+        max_clusters=16,
+        obb_angles=32,
+    )
+    (stats, _), = stream_extract([pts], capacity=8192, params=params)
+    assert float(stats["cells_overflow"]) == 0.0
+    assert int(stats["accepted"].sum()) == len(centers)
+
+
 def test_elevation_report(tmp_path):
     lat = np.linspace(20, 40, 21)
     lon = np.linspace(100, 120, 21)

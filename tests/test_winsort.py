@@ -1,11 +1,14 @@
-"""ops/pallas/winsort.py: the in-VMEM window sort must equal the XLA
-reference (sort within 256-windows at offsets 0 and 128) and deliver
-the hier guarantee: exact (k1, w) order for every k1-run <= 129."""
+"""frontend_fused.window_sort: two offset window sorts must equal the
+numpy reference (sort within 256-windows at offsets 0 and 128) and
+deliver the hier guarantee: exact (k1, w) order for every k1-run <= 129."""
 
 import numpy as np
 import pytest
+import jax.numpy as jnp
 
-from pointcloudhookup_tpu.ops.pallas.winsort import _BLOCK, window_sort_w
+from pointcloudhookup_tpu.ops.frontend_fused import window_sort
+
+_BLOCK = 32768
 
 
 def _make(n, max_run, seed=0):
@@ -39,27 +42,24 @@ def _reference(k1, w):
     return out
 
 
+def _sorted_w(k1, w):
+    k1_out, w_out = window_sort(jnp.asarray(k1), jnp.asarray(w), 256)
+    np.testing.assert_array_equal(np.asarray(k1_out), k1)  # k1 invariant
+    return np.asarray(w_out).astype(np.int32)
+
+
 @pytest.mark.parametrize("max_run", [1, 3, 17, 129])
 def test_matches_reference(max_run):
-    import jax.numpy as jnp
-
     n = 2 * _BLOCK
     k1, w = _make(n, max_run, seed=max_run)
-    got = np.asarray(
-        window_sort_w(jnp.asarray(k1), jnp.asarray(w), interpret=True)
-    )
-    np.testing.assert_array_equal(got, _reference(k1, w))
+    np.testing.assert_array_equal(_sorted_w(k1, w), _reference(k1, w))
 
 
 def test_guarantee_runs_le_129():
     """Every k1-run <= 129 must be exactly (k1, w)-sorted afterwards."""
-    import jax.numpy as jnp
-
     n = 2 * _BLOCK
     k1, w = _make(n, 129, seed=7)
-    got = np.asarray(
-        window_sort_w(jnp.asarray(k1), jnp.asarray(w), interpret=True)
-    )
+    got = _sorted_w(k1, w)
     # within each run, w must be ascending
     starts = np.flatnonzero(np.r_[True, k1[1:] != k1[:-1]])
     ends = np.r_[starts[1:], n]
